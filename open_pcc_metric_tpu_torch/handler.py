@@ -1,0 +1,90 @@
+"""Command line — flag-for-flag parity with the JAX package's CLI.
+
+Reference surface (open_pcc_metric/handler.py:4-43):
+  --ocloud --pcloud --color {rgb,ycc} --hausdorff --point-to-plane --csv
+
+Extensions: --color yuv, --color-hausdorff, --d2-mode {reference,pc_error},
+--peak/--resolution (pc_error's PSNR peak convention), --dtype, --backend,
+and --device (default cuda). A CUDA device that is not there is an error:
+the CLI never falls back to the CPU on its own.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import typing
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m open_pcc_metric_tpu_torch",
+        description="Point-cloud compression quality metrics (PyTorch).")
+    p.add_argument("--ocloud", required=True, help="Original point cloud.")
+    p.add_argument("--pcloud", required=True, help="Processed point cloud.")
+    p.add_argument("--color", choices=["rgb", "ycc", "yuv"],
+                   help="Report color distortions as well.")
+    p.add_argument("--hausdorff", action="store_true",
+                   help="Report hausdorff metric as well. If --point-to-plane "
+                        "is provided, then hausdorff point-to-plane would be "
+                        "reported too")
+    p.add_argument("--point-to-plane", action="store_true",
+                   help="Report point-to-plane distance as well.")
+    p.add_argument("--csv", action="store_true",
+                   help="Print output in csv format.")
+    p.add_argument("--color-hausdorff", action="store_true",
+                   help="Also report per-channel color Hausdorff distance/PSNR.")
+    p.add_argument("--d2-mode", choices=["reference", "pc_error"],
+                   default="reference",
+                   help="Normal convention for point-to-plane (D2) projection "
+                        "(default: reference).")
+    p.add_argument("--peak", "--resolution", type=float, default=None,
+                   help="User-supplied signal peak for every geometric PSNR "
+                        "(pc_error's --resolution convention) instead of the "
+                        "reference's OBB-extent / intra-NN-distance peaks.")
+    p.add_argument("--dtype", choices=["float32", "float64"], default="float32",
+                   help="Compute dtype (the CUDA kernel takes float32; "
+                        "default: float32).")
+    p.add_argument("--backend", choices=["auto", "pruned"], default="auto",
+                   help="NN backend (auto = pruned; default: auto).")
+    p.add_argument("--device", default="cuda",
+                   help="Torch device to evaluate on (default: cuda).")
+    return p
+
+
+def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+
+    import torch
+
+    try:
+        device = torch.device(args.device)
+    except RuntimeError as e:
+        parser.error(f"--device {args.device!r}: {e}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        parser.error(f"--device {args.device}: no CUDA device is available "
+                     "(pass --device cpu to evaluate on the CPU)")
+
+    from .evaluate import evaluate_pair, load_cloud
+    from .options import CalculateOptions
+
+    options = CalculateOptions(
+        color=args.color,
+        hausdorff=args.hausdorff,
+        point_to_plane=args.point_to_plane,
+        color_hausdorff=args.color_hausdorff,
+        d2_mode=args.d2_mode,
+        peak=args.peak,
+    )
+    a = load_cloud(args.ocloud, dtype=args.dtype, device=device)
+    b = load_cloud(args.pcloud, dtype=args.dtype, device=device)
+    result = evaluate_pair(a, b, options, backend=args.backend)
+    if args.csv:
+        print(result.to_csv())
+    else:
+        print(result.to_string())
+    return 0
+
+
+def cli() -> None:
+    sys.exit(main())

@@ -1,0 +1,100 @@
+"""Approximate minimal-volume oriented bounding box.
+
+Port of ``open_pcc_metric_tpu/ops/obb.py``. Replaces
+``PointCloud.get_minimal_oriented_bounding_box()`` (reference:
+open_pcc_metric/cloud_pair.py:111-112), whose ``.extent`` feeds the geometric
+PSNR peak (``peak = max(extent)``, reference metric.py:246 — SURVEY Q4).
+
+Algorithm parity with Open3D 0.18's ``CreateFromPointsMinimal``:
+  1. convex hull of the points (qhull, host side),
+  2. for every hull triangle (a, b, c), build the frame
+         u = b - a;  v = c - a;  w = u x v;  v = w x u;  normalise u, v, w,
+  3. project the hull vertices onto each frame, take the axis-aligned extent,
+  4. keep the frame with the smallest box volume.
+
+Hull and frames stay on the host; the O(T x V) projection sweep — the only
+heavy part — runs as chunked matrix products in torch on a chosen device;
+the winning frame's extent is then recomputed in float64 on the host.
+"""
+from __future__ import annotations
+
+import typing
+
+import numpy as np
+import torch
+
+
+def _frame_extents(frames_flat: np.ndarray, verts: np.ndarray,
+                   device) -> np.ndarray:
+    """(R,) max-minus-min of the projections of ``verts`` (V, 3) onto each
+    row of ``frames_flat`` (R, 3): float64 products on ``device``, in row
+    chunks of at most 2^24 projections."""
+    # float64 products never use TF32; the flag is set off anyway so that no
+    # float32 product in the process can pick a frame at ~3 digits.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f = torch.as_tensor(frames_flat, dtype=torch.float64, device=device)
+    vt = torch.as_tensor(verts, dtype=torch.float64, device=device).T.contiguous()
+    step = max(1, (1 << 24) // max(1, vt.shape[1]))
+    ext = []
+    for s in range(0, f.shape[0], step):
+        p = f[s : s + step] @ vt
+        ext.append(p.amax(dim=1) - p.amin(dim=1))
+    return torch.cat(ext).cpu().numpy().astype(np.float64)
+
+
+def minimal_obb_extent(
+    points: np.ndarray,
+    device: typing.Union[str, torch.device, None] = None,
+) -> np.ndarray:
+    """Extent (3 side lengths, unsorted frame order) of the approx-minimal OBB.
+
+    ``device=None`` keeps the projection sweep in numpy; otherwise it runs
+    in float64 torch on ``device`` (the cloud's device in
+    ``Cloud.get_obb_extent``).
+    """
+    from scipy.spatial import ConvexHull
+
+    points = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+    if points.shape[0] < 4:
+        return points.max(axis=0) - points.min(axis=0)
+    try:
+        hull = ConvexHull(points)
+    except Exception:
+        # Coplanar/collinear input: joggle via qhull option QJ.
+        hull = ConvexHull(points, qhull_options="QJ")
+
+    verts = points[hull.vertices]  # (V, 3)
+    tris = points[hull.simplices]  # (T, 3, 3)
+
+    a = tris[:, 0]
+    u = tris[:, 1] - a
+    v0 = tris[:, 2] - a
+    w = np.cross(u, v0)
+    v = np.cross(w, u)
+
+    def unit(x):
+        n = np.linalg.norm(x, axis=1, keepdims=True)
+        good = n[:, 0] > 1e-300
+        return np.where(good[:, None], x / np.where(good[:, None], n, 1.0), 0.0), good
+
+    u, gu = unit(u)
+    v, gv = unit(v)
+    w, gw = unit(w)
+    good = gu & gv & gw
+    frames = np.stack([u, v, w], axis=1)  # (T, 3, 3): rows are the new axes
+    t = frames.shape[0]
+
+    if device is not None:
+        ext = _frame_extents(frames.reshape(3 * t, 3), verts,
+                             device).reshape(t, 3)
+    else:
+        proj_all = frames.reshape(3 * t, 3) @ verts.T  # (3T, V) numpy
+        ext = (proj_all.max(axis=1) - proj_all.min(axis=1)).reshape(t, 3)
+
+    vol = np.where(good, ext.prod(axis=1), np.inf)
+    best = int(np.argmin(vol))
+    if not np.isfinite(vol[best]):
+        return points.max(axis=0) - points.min(axis=0)
+    # Refine the winning frame's extent in float64 on the host.
+    proj = verts @ frames[best].T
+    return proj.max(axis=0) - proj.min(axis=0)

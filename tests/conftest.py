@@ -52,3 +52,11 @@ def pytest_collection_modifyitems(config, items):
         name = item.nodeid.split("::", 1)[-1]
         if mod in _QUICK_MODULES or (mod, name) in _QUICK_TESTS:
             item.add_marker(pytest.mark.quick)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels have no CPU mode); "
+        "skips without one",
+    )
