@@ -69,8 +69,9 @@ class Cloud:
                for host-side work: grid builds, minimal-OBB hulls.
 
     The remaining fields cache per-cloud state that depends only on the
-    cloud (grid, OBB extent, sorted colours, boundary stats); a Cloud is
-    immutable after construction, so the caches never go stale.
+    cloud (grid, OBB extent, sorted colours, boundary stats, estimated
+    normals); a Cloud is immutable after construction, so the caches never
+    go stale.
     """
 
     points: torch.Tensor
@@ -84,6 +85,8 @@ class Cloud:
     _sorted_colors: typing.Optional[torch.Tensor] = dataclasses.field(
         default=None, init=False, repr=False)
     _boundary_stats: typing.Any = dataclasses.field(
+        default=None, init=False, repr=False)
+    _est_normals: typing.Optional[torch.Tensor] = dataclasses.field(
         default=None, init=False, repr=False)
 
     @property
@@ -177,6 +180,22 @@ class Cloud:
             else:
                 self._grid = build_grid(self.points, self.n)
         return self._grid
+
+    def get_normals(self) -> torch.Tensor:
+        """Padded normals: from the file, else estimated and cached.
+
+        The reference estimates normals when the file has none (reference
+        cloud_pair.py:61-64, Open3D's default 30-NN PCA); the estimate
+        depends only on this cloud's points, so it is cached like the grid
+        and shared by every pair the cloud joins.
+        """
+        if self.normals is not None:
+            return self.normals
+        if self._est_normals is None:
+            from .ops.normals import estimate_normals_cloud
+
+            self._est_normals = estimate_normals_cloud(self)
+        return self._est_normals
 
 
 def synthetic_sphere_pair(

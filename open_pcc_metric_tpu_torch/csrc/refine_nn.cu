@@ -7,10 +7,9 @@
 // (squared distance, original id) over the candidate chunks cand[t, s],
 // s < ncand[t], seeded from init when given, else (inf, INT32_MAX).
 //
-//   * Distance: d = ((bx-qx)^2 + (by-qy)^2) + (bz-qz)^2 with every step
-//     rounded on its own (__fsub_rn/__fmul_rn/__fadd_rn; also built with
-//     -fmad=false), so it equals the uncontracted eager PyTorch reference
-//     bit for bit.
+//   * Distance: pcc::offset (pcc_common.cuh), the one rounding K1, K3 and
+//     K4 share; it equals the uncontracted eager PyTorch reference bit for
+//     bit.
 //   * Ties: the lowest original id wins.
 //   * exclude_self: the column whose global sorted row equals the query's
 //     global sorted row (tiles[t] * 256 + lane) counts as d = inf, as in the
@@ -30,19 +29,14 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_build.py).
 
-#include <cuda_runtime.h>
+#include "pcc_common.cuh"
 
 #include <climits>
-#include <cstdint>
 
 namespace {
 
-constexpr int kChunk = 256;
-
-struct __align__(16) Rec {
-  float x, y, z;
-  int id;
-};
+using pcc::kChunk;
+using pcc::Rec;
 
 __global__ void __launch_bounds__(kChunk)
 refine_nn_kernel(const float* __restrict__ q, const float* __restrict__ b,
@@ -62,7 +56,7 @@ refine_nn_kernel(const float* __restrict__ q, const float* __restrict__ b,
   const float qz = q[row * 3 + 2];
 
   const int64_t o = static_cast<int64_t>(t) * kChunk + lane;
-  float best_d = init_d != nullptr ? init_d[o] : __int_as_float(0x7f800000);
+  float best_d = init_d != nullptr ? init_d[o] : pcc::inf();
   int best_i = init_i != nullptr ? init_i[o] : INT_MAX;
 
   int live = w;
@@ -70,22 +64,16 @@ refine_nn_kernel(const float* __restrict__ q, const float* __restrict__ b,
 
   for (int s = 0; s < live; ++s) {
     const int c = cand[static_cast<int64_t>(t) * w + s];
-    const int64_t src = static_cast<int64_t>(c) * kChunk + lane;
     __syncthreads();  // every thread is done with the previous chunk
-    chunk[lane] = Rec{b[src * 3 + 0], b[src * 3 + 1], b[src * 3 + 2],
-                      b_orig[src]};
+    pcc::stage_chunk(chunk, b, b_orig, c, lane);
     __syncthreads();
     const int self_j = (exclude_self && c == tile) ? lane : -1;
 #pragma unroll 8
     for (int j = 0; j < kChunk; ++j) {
       const Rec r = chunk[j];
-      const float dx = __fsub_rn(r.x, qx);
-      const float dy = __fsub_rn(r.y, qy);
-      const float dz = __fsub_rn(r.z, qz);
-      float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                          __fmul_rn(dz, dz));
-      if (j == self_j) d = __int_as_float(0x7f800000);
-      if (d < best_d || (d == best_d && r.id < best_i)) {
+      float d = pcc::offset(r, qx, qy, qz).d;
+      if (j == self_j) d = pcc::inf();
+      if (pcc::lex_less(d, r.id, best_d, best_i)) {
         best_d = d;
         best_i = r.id;
       }
@@ -109,8 +97,4 @@ extern "C" int pcc_refine_nn(const float* q, const float* b, const int* b_orig,
       q, b, b_orig, cand, tiles, ncand, init_d, init_i, out_d, out_i, w,
       exclude_self);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* pcc_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

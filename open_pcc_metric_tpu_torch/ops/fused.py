@@ -8,8 +8,10 @@ neighbours — is reduced on the clouds' device in Morton-sorted space. Only
 scalars and 3-vectors leave the device; the host then applies the OBB peak
 and log10s (``finalize_stats``).
 
-Clouds without normals need the estimation slice (30-NN PCA normals),
-which this package does not have yet.
+Under point-to-plane a cloud without normals gets them estimated
+(``Cloud.get_normals``: 30-NN PCA through the pruned k-NN with in-kernel
+moments, ``ops/normals.py``); the estimation caches the origin's boundary
+stats on the way, so the self-NN sweep is then skipped.
 """
 from __future__ import annotations
 
@@ -380,24 +382,24 @@ def fused_evaluate(
             "reference D2 mode requires n_origin <= n_reconst "
             f"(got {a.n} > {b.n}); use d2_mode='pc_error'"
         )
-    if point_to_plane and (a.normals is None or b.normals is None):
-        raise NotImplementedError(
-            "point-to-plane metrics on a cloud without normals need normal "
-            "estimation, which comes with the estimation slice (30-NN PCA "
-            "normals); supply normals in the files for now")
+    obb_future = _prefetch_obb(a, peak)
+    a_nrm, b_nrm = a.normals, b.normals
+    if point_to_plane:
+        # Per-cloud cache: estimated normals depend only on the cloud.
+        a_nrm, b_nrm = a.get_normals(), b.get_normals()
     if int(a.n) < 2 and a._boundary_stats is None:
         raise ValueError(
             "intra-cloud NN distances need at least 2 points; the cloud "
             f"has {int(a.n)}"
         )
-    obb_future = _prefetch_obb(a, peak)
     ga, gb = a.get_grid(), b.get_grid()
     a_col_sorted = b_col_sorted = None
     if color_scheme is not None:
         a_col_sorted = _sorted_colors(a)
         b_col_sorted = _sorted_colors(b)
     # The self-NN pass is folded in when the origin's boundary stats are
-    # not cached yet; the result is cached either way.
+    # not cached yet (a normal estimation above may have just cached them);
+    # the result is cached either way.
     with_boundary = a._boundary_stats is None
     memo_key = (a.padded_size, b.padded_size, str(a.points.dtype),
                 color_scheme, point_to_plane, d2_mode, backend)
@@ -406,7 +408,7 @@ def fused_evaluate(
     def run(cap, fallback):
         stats = pair_stats(
             a.points, b.points, a.n, b.n, a.colors, b.colors,
-            a.normals, b.normals, ga, gb, a_col_sorted, b_col_sorted,
+            a_nrm, b_nrm, ga, gb, a_col_sorted, b_col_sorted,
             color_scheme=color_scheme, point_to_plane=point_to_plane,
             d2_mode=d2_mode, with_boundary=with_boundary, backend=backend,
             prune_cap=cap, prune_fallback=fallback,

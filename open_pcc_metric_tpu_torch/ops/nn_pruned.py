@@ -148,11 +148,16 @@ def nn_pruned_sorted(
     return dmin.reshape(nta * CHUNK), gidx.reshape(nta * CHUNK), overflow
 
 
+def unsort_rows(g: ChunkGrid, x: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` from Morton-sorted order back to original row order."""
+    p = x.shape[0]
+    inv = torch.empty(p, dtype=torch.long, device=x.device)
+    inv[g.perm.long()] = torch.arange(p, device=x.device)
+    return x[inv]
+
+
 def unsort_nn_result(
     ga: ChunkGrid, gb: ChunkGrid, d_sorted: torch.Tensor, i_sorted: torch.Tensor
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """Map sorted-query-order (dist, orig-b-idx) back to original row order."""
-    p = d_sorted.shape[0]
-    inv = torch.empty(p, dtype=torch.long, device=d_sorted.device)
-    inv[ga.perm.long()] = torch.arange(p, device=d_sorted.device)
-    return d_sorted[inv], i_sorted[inv]
+    return unsort_rows(ga, d_sorted), unsort_rows(ga, i_sorted)

@@ -199,10 +199,10 @@ def test_cli_device_defaults_to_cuda(tmp_path, capsys):
 
 def test_unported_paths_raise():
     o, r = _pair_arrays(4, n=600)
-    a = Cloud.from_numpy(o[0])  # no normals: estimation is a later slice
+    a = Cloud.from_numpy(o[0])  # no normals: they are estimated
     b = Cloud.from_numpy(r[0])
-    with pytest.raises(NotImplementedError, match="estimation"):
-        fused_evaluate(a, b, point_to_plane=True, d2_mode="pc_error")
+    out = fused_evaluate(a, b, point_to_plane=True, d2_mode="pc_error")
+    assert np.isfinite(out["d2_psnr_sym"]) and a._est_normals is not None
     with pytest.raises(NotImplementedError):
         evaluate_pair(a, b, CalculateOptions(), engine="dag")
     with pytest.raises(NotImplementedError):
