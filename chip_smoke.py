@@ -7,25 +7,33 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds the hand-written CUDA kernels from ``open_pcc_metric_tpu_torch/csrc``
 (one nvcc per source, all started together), checks each against its plain
-PyTorch version at the shapes the evaluation paths give it, and drives two
-paths on bench.py's 800k-point voxelised pair (ycc + point-to-plane +
-pc_error + Hausdorff):
+PyTorch version at the shapes the evaluation paths give it, and drives four
+paths on bench.py's voxelised pairs (ycc + point-to-plane + pc_error +
+Hausdorff):
 
-  * the main path: ``fused_evaluate`` on clouds that carry normals (K1),
+  * the main path: ``fused_evaluate`` on the 800k pair with normals (K1),
     with the three NN sweeps checked against an exact float64 scipy oracle
     and the PSNRs against a float64 numpy evaluation;
   * the estimation path: the same pair without normals, fresh clouds per
     run, so each run estimates 30-NN PCA normals (K3, K4) before the
     sweeps (K1); the k-NN sets are checked against an exact float64 scipy
     oracle, the normals against float64 LAPACK normals of those sets, and
-    the PSNRs against a float64 evaluation with those normals.
+    the PSNRs against a float64 evaluation with those normals;
+  * the small-cloud path: ``fused_evaluate`` on the 60k pair, the largest
+    the brute force serves (61440 padded rows, below 65536), through K5,
+    with the same oracle checks;
+  * the DAG path: ``evaluate_pair(engine="dag")`` on the 60k pair (K5) and
+    on the 800k pair (K1 through ``nn_pruned_with_grids``), each table
+    equal to the fused engine's.
 
 It prints:
 
   * the card's name and power limit (nvidia-smi),
   * each kernel's build time and ptxas resource lines,
-  * one line per kernel phase, one timing line per path,
-  * a ``{"kernels": [...]}`` JSON line, and last
+  * one line per kernel phase, one timing line per path, with its checks,
+  * a ``{"kernels": [...]}`` JSON line (launches on the paths, error and
+    times against the plain version, the bound from this run's shapes and
+    data, and for K5 one PyTorch library call's time), and last
   * ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the exit code is non-zero and the last line is
@@ -43,6 +51,7 @@ import time
 import numpy as np
 
 N_POINTS = 800_000
+SMALL_POINTS = 60_000  # pads to 61440 rows: the largest brute-force pair
 RUNS = 5
 EST_RUNS = 3
 CAP, FALLBACK, P1 = 32, 256, 8  # the main path's base rung and probe width
@@ -50,11 +59,19 @@ K, KCAP, KFT = 30, 64, 256  # the estimation's k and base rung
 PLAIN_BUDGET_S = 60.0  # a plain phase predicted slower runs on a subset
 MOM_RTOL, MOM_ATOL = 1e-6, 1e-4  # K4 vs plain: float32 summation order
 D2_TOL, PSNR_TOL = 5e-3, 1e-4  # dB; D2 with estimated normals, the rest
+ENGINE_RTOL = 1e-6  # DAG vs fused: the same exact NN terms, summed apart
 KERNELS = {
     "refine_nn": "open_pcc_metric_tpu/ops/refine_pallas.py:575",
     "refine_knn": "open_pcc_metric_tpu/ops/refine_pallas.py:861",
     "knn_moments": "open_pcc_metric_tpu/ops/refine_pallas.py:1330",
+    "nn_brute": "open_pcc_metric_tpu/ops/nn_pallas.py:40",
 }
+# The card's published peaks (H100 SXM, NVIDIA's data sheet): float32
+# outside the tensor cores, and device memory. A kernel's bound is the
+# larger of its operations over the first and its bytes over the second.
+PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add and one compare per distance
+OPS_PER_MEMBER = 16  # K4: one count and 15 multiply/adds per k-NN member
 
 
 def _bit_equal(x, y) -> bool:
@@ -96,6 +113,28 @@ def _once_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def _bound(ops, tensors_in, tensors_out):
+    """(bound_ms, bound_by): the least time the card could take for
+    ``ops`` float32 operations and for reading each input and writing each
+    output once, at the published peaks."""
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (*tensors_in, *tensors_out) if x is not None)
+    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def _live_pairs(cand, ncand):
+    """(query, candidate) pairs a refine call visits: 256 x 256 per live
+    slot, the slots gated by ``ncand`` when given."""
+    import torch
+
+    nt, w = cand.shape
+    live = nt * w if ncand is None else int(torch.clamp(ncand, 0, w).sum())
+    return live * 256 * 256
+
+
 def _counts_of(dist, lb, valid_t):
     """Certificate counts: chunks with lb <= the tile's padded ub, where ub
     is the largest ``dist`` over the tile's valid rows."""
@@ -132,11 +171,16 @@ def kernel_phases(a, b, float_cloud):
             raise AssertionError(
                 f"K1 phase {name}: {bad} rows differ from refine_nn_reference "
                 f"(max |d| error {err})")
+        init = kw.get("init") or (None, None)
+        bound_ms, bound_by = _bound(
+            OPS_PER_PAIR * _live_pairs(cand, kw.get("ncand")),
+            [*args, kw.get("tiles"), kw.get("ncand"), *init], [dk, ik])
         rec = {
             "phase": name, "tiles": int(cand.shape[0]),
             "slots": int(cand.shape[1]), "max_abs_err": err,
             "ms": _time_ms(lambda: refine_nn(*args, **kw), 20),
             "plain_ms": _time_ms(lambda: refine_nn_reference(*args, **kw), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
         }
         print("kernel phase " + json.dumps(rec), flush=True)
         return dk, ik, rec
@@ -215,7 +259,9 @@ def knn_phases(a, float_cloud):
 
     def run(name, kernel, plain, compare, cand, ncand=None, tiles=None,
             init=None, **kw):
-        """Kernel on the full call, plain on the full call or a subset."""
+        """Kernel on the full call, plain on the full call or a subset.
+        The bound counts OPS_PER_PAIR per visited pair and, for K4,
+        OPS_PER_MEMBER per k-NN member it sums."""
         nt = cand.shape[0]
         args = dict(kw, tiles=tiles, init=init)
         if ncand is not None:
@@ -242,11 +288,21 @@ def knn_phases(a, float_cloud):
             want, plain_ms = _once_ms(lambda: plain(cand=cand, **args))
         got = tuple(x[rows] for x in out) if isinstance(out, tuple) else out[rows]
         err = compare(name, got, want)
+        outs = out if isinstance(out, tuple) else (out,)
+        ops = OPS_PER_PAIR * _live_pairs(cand, ncand)
+        if not isinstance(out, tuple):  # K4: members counted in channel 0
+            members = out[..., 0].sum() - (0 if init is None
+                                           else init[..., 0].sum())
+            ops += OPS_PER_MEMBER * float(members)
+        inits = init if isinstance(init, tuple) else (init,)
+        bound_ms, bound_by = _bound(
+            ops, [cand, ncand, tiles, *inits, *kw.values(), g.points,
+                  g.perm], outs)
         rec = {
             "phase": name, "tiles": int(nt), "slots": int(cand.shape[1]),
             "max_abs_err": err,
             "ms": _time_ms(lambda: kernel(cand=cand, **args), 5),
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         }
         if note:
             rec["plain_subset"] = note
@@ -404,52 +460,38 @@ def _guarded(modules_names):
 
 
 def _plain_names():
-    from open_pcc_metric_tpu_torch.ops import refine
+    from open_pcc_metric_tpu_torch.ops import nn, refine
 
     return [(refine, "refine_nn_reference"), (refine, "refine_knn_reference"),
-            (refine, "knn_moments_reference")]
+            (refine, "knn_moments_reference"), (nn, "nn_chunked")]
+
+
+def _wrappers():
+    """Each kernel's wrapper, which counts its launches."""
+    from open_pcc_metric_tpu_torch.ops import nn, refine
+
+    return {"refine_nn": refine.refine_nn, "refine_knn": refine.refine_knn,
+            "knn_moments": refine.knn_moments, "nn_brute": nn.nn_argmin}
 
 
 def _reset_launches():
-    from open_pcc_metric_tpu_torch.ops import refine
-
-    for name in KERNELS:
-        getattr(refine, name).launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _launches():
-    from open_pcc_metric_tpu_torch.ops import refine
-
-    return {name: getattr(refine, name).launches for name in KERNELS}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def main_path(origin, reconst, dev):
-    """fused_evaluate on the card: one warm-up, then the median of RUNS."""
-    import torch
-
-    from open_pcc_metric_tpu_torch.cloud import Cloud
+    """fused_evaluate on the 800k pair with normals: one warm-up (grids,
+    caches, self-NN), then RUNS timed calls."""
     from open_pcc_metric_tpu_torch.ops.fused import fused_evaluate
 
-    a = Cloud.from_numpy(origin[0], colors=origin[1], normals=origin[2],
-                         device=dev)
-    b = Cloud.from_numpy(reconst[0], colors=reconst[1], normals=reconst[2],
-                         device=dev)
-    torch.cuda.synchronize()
     kwargs = dict(color_scheme="ycc", point_to_plane=True, d2_mode="pc_error")
-    restore = _guarded(_plain_names())
-    try:
-        _reset_launches()
-        t0 = time.perf_counter()
-        result = fused_evaluate(a, b, **kwargs)  # builds grids, caches, self-NN
-        first_s = time.perf_counter() - t0
-        times = []
-        for _ in range(RUNS):
-            t0 = time.perf_counter()
-            result = fused_evaluate(a, b, **kwargs)  # ends in a host readback
-            times.append(time.perf_counter() - t0)
-        launches = _launches()
-    finally:
-        restore()
+    (a, b), result, first_s, times, launches = _timed_runs(
+        lambda: _pair_clouds(origin, reconst, dev),
+        lambda a, b: fused_evaluate(a, b, **kwargs))
     if launches["refine_nn"] <= 0:
         raise AssertionError("the main path launched K1 no time")
     return a, b, result, first_s, times, launches
@@ -487,7 +529,7 @@ def estimation_path(origin, reconst, dev):
         launches = _launches()
     finally:
         restore()
-    for name in KERNELS:
+    for name in ("refine_nn", "refine_knn", "knn_moments"):
         if launches[name] <= 0:
             raise AssertionError(f"the estimation path launched {name} no time")
     return a, b, result, first_s, times, launches
@@ -525,47 +567,61 @@ def _psnr_deltas(result, want):
             for k, v in want.items()}
 
 
-def oracle_checks(a, b, origin, reconst, result):
-    """The three NN sweeps bit-exact vs the scipy float64 oracle, and the
-    PSNRs vs a float64 numpy evaluation built from the oracle neighbours.
-    Returns the oracle sweeps."""
+def oracle_checks(a, b, origin, reconst, result, search, label):
+    """The three NN sweeps that ``search(q, s, exclude_self)`` gives (padded
+    original-order ``(idx, dist_sq)``) bit-exact vs the scipy float64
+    oracle, and the PSNRs vs a float64 numpy evaluation built from the
+    oracle neighbours. Returns (oracle sweeps, max |dPSNR|)."""
     import bench
+
+    sweeps = {}
+    for name, q, s, qp, sp, ex in (
+            ("a->b", a, b, origin[0], reconst[0], False),
+            ("b->a", b, a, reconst[0], origin[0], False),
+            ("self a->a", a, a, origin[0], origin[0], True)):
+        i, d = search(q, s, ex)
+        i = i[: q.n].cpu().numpy()
+        d = d[: q.n].double().cpu().numpy()
+        oi, od = bench._oracle_nn_fast(qp, sp, exclude_self=ex)
+        bad = int(np.sum((oi != i) | (od != d)))
+        print(f"{label}sweep {name}: {q.n} queries, {bad} differ from the "
+              "oracle", flush=True)
+        if bad:
+            raise AssertionError(f"{label}sweep {name}: {bad} rows differ "
+                                 "from the float64 oracle")
+        sweeps[name] = (oi, od)
+    want = _want_psnrs(origin, reconst, sweeps, origin[2], reconst[2])
+    delta = max(_psnr_deltas(result, want).values())
+    print(f"{label}max |dPSNR| vs float64 oracle evaluation: {delta:.3e} dB "
+          f"({len(want)} PSNR entries)", flush=True)
+    if not delta <= PSNR_TOL:
+        raise AssertionError(f"{label}PSNR parity: max |delta| {delta:.3e} "
+                             "> 1e-4 dB")
+    return sweeps, delta
+
+
+def pruned_search(q, s, exclude_self):
+    """The main path's pruned sweep at the rung its ladder settled on."""
     from open_pcc_metric_tpu_torch.ops.fused import _LADDER_MEMO
     from open_pcc_metric_tpu_torch.ops.nn_pruned import (
         nn_pruned_sorted, unsort_nn_result)
 
-    pts0, pts1 = origin[0], reconst[0]
     rungs = {rung for rung, _ in _LADDER_MEMO.values()}
     cap, ft = rungs.pop() if len(rungs) == 1 else (CAP, FALLBACK)
-    sweeps = {}
-    for name, q, s, ex in (("a->b", a, b, False), ("b->a", b, a, False),
-                           ("self a->a", a, a, True)):
-        gq, gs = q.get_grid(), s.get_grid()
-        d_s, i_s, ov = nn_pruned_sorted(gq, gs, q.n, exclude_self=ex,
-                                        cap=cap, fallback_tiles=ft)
-        if bool(ov):
-            raise AssertionError(f"sweep {name} overflowed at rung {(cap, ft)}")
-        d, i = unsort_nn_result(gq, gs, d_s, i_s)
-        d = d[: q.n].double().cpu().numpy()
-        i = i[: q.n].cpu().numpy()
-        qp = pts0 if q is a else pts1
-        sp = pts0 if s is a else pts1
-        oi, od = bench._oracle_nn_fast(qp, sp, exclude_self=ex)
-        bad = int(np.sum((oi != i) | (od != d)))
-        print(f"sweep {name}: {q.n} queries, {bad} differ from the oracle",
-              flush=True)
-        if bad:
-            raise AssertionError(f"sweep {name}: {bad} rows differ from the "
-                                 "float64 oracle")
-        sweeps[name] = (oi, od)
+    gq, gs = q.get_grid(), s.get_grid()
+    d_s, i_s, ov = nn_pruned_sorted(gq, gs, q.n, exclude_self=exclude_self,
+                                    cap=cap, fallback_tiles=ft)
+    if bool(ov):
+        raise AssertionError(f"a sweep overflowed at rung {(cap, ft)}")
+    d, i = unsort_nn_result(gq, gs, d_s, i_s)
+    return i, d
 
-    want = _want_psnrs(origin, reconst, sweeps, origin[2], reconst[2])
-    delta = max(_psnr_deltas(result, want).values())
-    print(f"max |dPSNR| vs float64 oracle evaluation: {delta:.3e} dB "
-          f"({len(want)} PSNR entries)", flush=True)
-    if not delta <= PSNR_TOL:
-        raise AssertionError(f"PSNR parity: max |delta| {delta:.3e} > 1e-4 dB")
-    return sweeps
+
+def brute_search(q, s, exclude_self):
+    """The small-cloud path's sweep: the dispatcher, which takes K5."""
+    from open_pcc_metric_tpu_torch.ops.nn import nearest_neighbors
+
+    return nearest_neighbors(q.points, s.points, exclude_self=exclude_self)
 
 
 def estimation_checks(a, b, origin, reconst, result, sweeps):
@@ -612,6 +668,152 @@ def estimation_checks(a, b, origin, reconst, result, sweeps):
                              f"others {rest:.3e}")
     out["max_dpsnr_d2"], out["max_dpsnr_other"] = d2, rest
     return out
+
+
+def brute_phases(a, b, float_cloud):
+    """K5 against nn_chunked on the card at the small-cloud path's shapes:
+    a->b, b->a, self a->a with exclude_self, and a float cloud -> b. Index
+    and distance must be bit-identical. The plain version runs on all rows
+    unless a timed 2048-row slice predicts more than PLAIN_BUDGET_S, then on
+    a stated leading block of rows. The a->b phase also times one PyTorch
+    library call for the same function, ``torch.cdist(a, b).min(dim=1)``
+    (two kernels, not bit-equal; a yardstick the port never calls)."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.nn import nn_argmin, nn_chunked
+
+    records = []
+    for name, q, s, ex in (("a->b", a, b, False), ("b->a", b, a, False),
+                           ("self a->a", a, a, True),
+                           ("float a->b", float_cloud, b, False)):
+        qp, sp = q.points, s.points
+        gi, gd = nn_argmin(qp, sp, ex)
+        torch.cuda.synchronize()
+        na = qp.shape[0]
+        _, slice_ms = _once_ms(lambda: nn_chunked(qp[:2048], sp, ex))
+        predicted_s = slice_ms * na / 2048 / 1e3
+        rows, note = na, None
+        if predicted_s > PLAIN_BUDGET_S:
+            rows = max(2048, int(na * PLAIN_BUDGET_S / predicted_s) // 256 * 256)
+            note = (f"plain version compared on the first {rows} of {na} "
+                    f"rows: all rows were predicted to take {predicted_s:.0f} s")
+        (wi, wd), plain_ms = _once_ms(lambda: nn_chunked(qp[:rows], sp, ex))
+        if not (_bit_equal(gi[:rows], wi) and _bit_equal(gd[:rows], wd)):
+            bad = int(((gi[:rows] != wi) | (gd[:rows] != wd)).sum())
+            raise AssertionError(f"K5 phase {name}: {bad} rows differ from "
+                                 "nn_chunked")
+        bound_ms, bound_by = _bound(OPS_PER_PAIR * na * sp.shape[0],
+                                    [qp, sp], [gi, gd])
+        rec = {
+            "phase": name, "rows": int(na), "search_rows": int(sp.shape[0]),
+            "valid_rows": [int(q.n), int(s.n)], "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: nn_argmin(qp, sp, ex), 20),
+            "plain_ms": plain_ms if rows == na else None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        if note:
+            rec["plain_subset"] = note
+            rec["plain_subset_ms"] = plain_ms
+        if name == "a->b":
+            rec["library_ms"] = _time_ms(
+                lambda: torch.cdist(qp, sp).min(dim=1), 3)
+        print("kernel phase " + json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
+
+
+def _timed_runs(make, evaluate):
+    """One warm-up and RUNS timed calls of ``evaluate`` on the clouds
+    ``make`` gives once, every plain version guarded and the launch counts
+    set to 0 just before and read just after. Returns (clouds, result,
+    first-call s, times, launches)."""
+    clouds = make()
+    restore = _guarded(_plain_names())
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = evaluate(*clouds)
+        first_s = time.perf_counter() - t0
+        times = []
+        for _ in range(RUNS):
+            t0 = time.perf_counter()
+            result = evaluate(*clouds)  # ends in a host readback
+            times.append(time.perf_counter() - t0)
+        launches = _launches()
+    finally:
+        restore()
+    return clouds, result, first_s, times, launches
+
+
+def _pair_clouds(origin, reconst, dev):
+    import torch
+
+    from open_pcc_metric_tpu_torch.cloud import Cloud
+
+    a = Cloud.from_numpy(origin[0], colors=origin[1], normals=origin[2],
+                         device=dev)
+    b = Cloud.from_numpy(reconst[0], colors=reconst[1], normals=reconst[2],
+                         device=dev)
+    torch.cuda.synchronize()
+    return a, b
+
+
+def small_path(origin, reconst, dev):
+    """fused_evaluate on the 60k pair with normals: the brute force (K5)
+    only, no grid and no K1."""
+    from open_pcc_metric_tpu_torch.ops.fused import fused_evaluate
+
+    kwargs = dict(color_scheme="ycc", point_to_plane=True, d2_mode="pc_error")
+    (a, b), result, first_s, times, launches = _timed_runs(
+        lambda: _pair_clouds(origin, reconst, dev),
+        lambda a, b: fused_evaluate(a, b, **kwargs))
+    if launches["nn_brute"] <= 0:
+        raise AssertionError("the small-cloud path launched K5 no time")
+    if launches["refine_nn"] or a._grid is not None:
+        raise AssertionError("the small-cloud path reached the pruned search")
+    return a, b, result, first_s, times, launches
+
+
+def dag_path(origin, reconst, dev, kernel):
+    """evaluate_pair(engine="dag") on fresh clouds with normals, counted,
+    then the fused table on the same clouds: every PSNR within PSNR_TOL and
+    every other value within ENGINE_RTOL. ``kernel`` must have launched."""
+    from open_pcc_metric_tpu_torch.evaluate import evaluate_pair
+    from open_pcc_metric_tpu_torch.options import CalculateOptions
+
+    opts = CalculateOptions(color="ycc", hausdorff=True, point_to_plane=True,
+                            d2_mode="pc_error")
+    a, b = _pair_clouds(origin, reconst, dev)
+    restore = _guarded(_plain_names())
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        dag = evaluate_pair(a, b, opts, engine="dag").as_dict()
+        dag_s = time.perf_counter() - t0
+        launches = _launches()
+    finally:
+        restore()
+    if launches[kernel] <= 0:
+        raise AssertionError(f"the DAG path launched {kernel} no time")
+    fused = evaluate_pair(a, b, opts, engine="fused").as_dict()
+    if list(dag) != list(fused):
+        raise AssertionError("the DAG and fused tables have other rows")
+    dpsnr, rel = 0.0, 0.0
+    for key, want in fused.items():
+        g = np.asarray(dag[key], np.float64)
+        w = np.asarray(want, np.float64)
+        if "PSNR" in key[0]:
+            dpsnr = max(dpsnr, float(np.max(np.abs(g - w))))
+        else:
+            rel = max(rel, float(np.max(np.abs(g - w)
+                                        / np.maximum(np.abs(w), 1e-30))))
+    if not (dpsnr <= PSNR_TOL and rel <= ENGINE_RTOL):
+        raise AssertionError(f"DAG vs fused: max |dPSNR| {dpsnr:.3e} dB, "
+                             f"max rel {rel:.3e}")
+    return {"n_points": a.n + b.n, "rows": len(dag), "dag_s": dag_s,
+            "max_dpsnr_vs_fused": dpsnr, "max_rel_vs_fused": rel,
+            "launches": {k: v for k, v in launches.items() if v}}
+
 
 
 def main() -> int:
@@ -673,7 +875,8 @@ def main() -> int:
         "mpts_per_s": n_total / med / 1e6, "k1_launches": launches["refine_nn"],
         "card": smi,
     }), flush=True)
-    sweeps = oracle_checks(a, b, origin, reconst, result)
+    sweeps, _ = oracle_checks(a, b, origin, reconst, result,
+                              pruned_search, "")
     del a, b
     torch.cuda.empty_cache()
 
@@ -690,25 +893,72 @@ def main() -> int:
         "card": smi,
     }), flush=True)
     estimation_checks(ea, eb, origin, reconst, est_result, sweeps)
+    del ea, eb
+    torch.cuda.empty_cache()
+    dag_big = dag_path(origin, reconst, dev, "refine_nn")
+    torch.cuda.empty_cache()
+
+    # The small-cloud path: the largest pair the brute force serves.
+    t0 = time.perf_counter()
+    s_origin, s_reconst = bench.make_clouds(SMALL_POINTS)
+    s_float = s_origin[0] + rng.uniform(-0.5, 0.5, s_origin[0].shape)
+    sa = Cloud.from_numpy(s_origin[0], device=dev)
+    sb = Cloud.from_numpy(s_reconst[0], device=dev)
+    print(f"small clouds: {sa.n} + {sb.n} points, padded {sa.padded_size} "
+          f"and {sb.padded_size} rows ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    k5_recs = brute_phases(sa, sb, Cloud.from_numpy(s_float, device=dev))
+    del sa, sb
+    torch.cuda.empty_cache()
+    sa, sb, s_result, s_first, s_times, s_launches = small_path(
+        s_origin, s_reconst, dev)
+    s_total = sa.n + sb.n
+    s_med = statistics.median(s_times)
+    _, s_delta = oracle_checks(sa, sb, s_origin, s_reconst, s_result,
+                               brute_search, "small path ")
+    print("small-cloud path " + json.dumps({
+        "n_points": s_total, "padded_rows": [sa.padded_size, sb.padded_size],
+        "first_call_s": s_first, "times_s": s_times, "median_s": s_med,
+        "mpts_per_s": s_total / s_med / 1e6,
+        "k5_launches": s_launches["nn_brute"],
+        "max_dpsnr_vs_oracle": s_delta, "sweep_rows_off_oracle": 0,
+        "card": smi,
+    }), flush=True)
+    del sa, sb
+    dag_small = dag_path(s_origin, s_reconst, dev, "nn_brute")
+    print("dag path " + json.dumps({"small pair (K5)": dag_small,
+                                    "800k pair (K1)": dag_big,
+                                    "card": smi}), flush=True)
 
     for name in ("jax", "open_pcc_metric_tpu"):
         if name in sys.modules:
             raise AssertionError(f"{name} was imported")
     path_launches = {"refine_nn": launches["refine_nn"],
                      "refine_knn": est_launches["refine_knn"],
-                     "knn_moments": est_launches["knn_moments"]}
+                     "knn_moments": est_launches["knn_moments"],
+                     "nn_brute": s_launches["nn_brute"]}
     phase_recs = {"refine_nn": records, "refine_knn": k3_recs,
-                  "knn_moments": k4_recs}
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": f"open_pcc_metric_tpu_torch/csrc/{name}.cu",
-        "replaces": KERNELS[name],
-        "launches": path_launches[name],
-        "max_abs_err": max(r["max_abs_err"] for r in phase_recs[name]),
-        "ms": _full_phase(phase_recs[name])["ms"],
-        "plain_ms": _full_phase(phase_recs[name])["plain_ms"],
-    } for name in KERNELS]}), flush=True)
+                  "knn_moments": k4_recs, "nn_brute": k5_recs}
+    kernels = []
+    for name in KERNELS:
+        full = _full_phase(phase_recs[name])
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"open_pcc_metric_tpu_torch/csrc/{name}.cu",
+            "replaces": KERNELS[name],
+            "launches": path_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in phase_recs[name]),
+            "ms": full["ms"],
+            "plain_ms": full["plain_ms"],
+            "bound_ms": full["bound_ms"],
+            "bound_by": full["bound_by"],
+            "library_ms": full.get("library_ms"),
+            "phase": full["phase"],
+        })
+        if kernels[-1]["launches"] <= 0:
+            raise AssertionError(f"{name} was launched on no path")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,17 @@
-"""Result container for an evaluated metric list.
+"""Memoised metric-DAG evaluation and the result container.
 
-Port of ``CalculateResult`` from ``open_pcc_metric_tpu/calculator.py``
-(reference open_pcc_metric/calculator.py:27-52): the same four columns —
-label, is_left, point-to-plane, value — printed as a text table or as CSV,
-without pandas. The CSV matches ``pandas.DataFrame.to_csv`` of the JAX
-package's table (a leading row-index column). The memoised DAG calculator
-comes with the DAG slice.
+Port of ``open_pcc_metric_tpu/calculator.py`` (reference
+open_pcc_metric/calculator.py:15-108):
+
+  * ``MetricCalculator`` evaluates a metric list over one ``CloudPair``,
+    depth first through ``_get_dependencies``, memoised on ``_key()`` so
+    the left/right/dependency diamond computes each node once. The memo is
+    an INSTANCE attribute: the reference's class-level one leaks results
+    across cloud pairs in one process (SURVEY Q1).
+  * ``CalculateResult``: the same four columns — label, is_left,
+    point-to-plane, value — printed as a text table or as CSV, without
+    pandas. The CSV matches ``pandas.DataFrame.to_csv`` of the JAX
+    package's table (a leading row-index column).
 """
 from __future__ import annotations
 
@@ -13,7 +19,11 @@ import csv
 import io
 import typing
 
-from .metric import AbstractMetric, SymmetricMetric
+from .metric import AbstractMetric, PrimaryMetric, SecondaryMetric, \
+    SymmetricMetric
+
+if typing.TYPE_CHECKING:
+    from .cloud_pair import CloudPair
 
 COLUMNS = ("label", "is_left", "point-to-plane", "value")
 
@@ -64,3 +74,42 @@ class CalculateResult:
 
     def __str__(self) -> str:
         return self.to_string()
+
+
+class MetricCalculator:
+    _cloud_pair: "CloudPair"
+    _calculated_metrics: typing.Dict[typing.Tuple, AbstractMetric]
+
+    def __init__(self, cloud_pair: "CloudPair"):
+        self._cloud_pair = cloud_pair
+        self._calculated_metrics = {}
+
+    def _metric_recursive_calculate(
+        self, metric: AbstractMetric
+    ) -> AbstractMetric:
+        key = metric._key()
+        if key in self._calculated_metrics:
+            return self._calculated_metrics[key]
+
+        if isinstance(metric, PrimaryMetric):
+            metric.calculate(self._cloud_pair)
+        elif isinstance(metric, SecondaryMetric):
+            deps = {
+                name: self._metric_recursive_calculate(dep)
+                for name, dep in metric._get_dependencies().items()
+            }
+            metric.calculate(**deps)
+        else:
+            raise RuntimeError(
+                f"cannot evaluate {metric.__class__.__name__}: every metric "
+                "must derive from PrimaryMetric or SecondaryMetric"
+            )
+        self._calculated_metrics[key] = metric
+        return metric
+
+    def calculate(
+        self, metrics_list: typing.List[AbstractMetric]
+    ) -> CalculateResult:
+        return CalculateResult(
+            [self._metric_recursive_calculate(m) for m in metrics_list]
+        )

@@ -50,6 +50,20 @@ def pad_bucket(n: int, policy: str = "bucket") -> int:
     return round_up(n, step)
 
 
+def resolve_device(
+        device: typing.Union[str, torch.device, None]) -> torch.device:
+    """The device a library entry point runs on: ``device`` when given,
+    else the CUDA device. Without one, a call that names no device raises
+    instead of running on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available, and the port runs on the card "
+            "unless asked otherwise; pass device='cpu' to evaluate on the CPU")
+    return torch.device("cuda")
+
+
 def numpy_dtype(dtype: torch.dtype):
     if dtype not in _NP_DTYPES:
         raise ValueError(f"unsupported cloud dtype {dtype}")
@@ -107,11 +121,13 @@ class Cloud:
         pad_to: typing.Optional[int] = None,
         pad_policy: str = "bucket",
     ) -> "Cloud":
-        """Build a padded Cloud on ``device`` (torch's default when None).
+        """Build a padded Cloud on ``device`` (the CUDA device when None;
+        ``resolve_device`` raises when there is none).
 
         Padding and the float64 -> ``dtype`` cast happen on the host, so the
         device receives exactly the bits the JAX package uploads.
         """
+        device = resolve_device(device)
         np_dtype = numpy_dtype(dtype)
         points = np.asarray(points, dtype=np.float64).reshape(-1, 3)
         n = points.shape[0]
@@ -144,6 +160,10 @@ class Cloud:
         if self.host_points is not None:
             return self.host_points
         return self.points[: self.n].cpu().numpy().astype(np.float64)
+
+    def has_normals(self) -> bool:
+        """Whether the file gave normals (estimated ones do not count)."""
+        return self.normals is not None
 
     def valid_mask(self) -> torch.Tensor:
         return torch.arange(self.padded_size, device=self.device) < self.n

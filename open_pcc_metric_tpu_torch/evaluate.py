@@ -1,8 +1,9 @@
 """High-level evaluation entry points (the programmatic API).
 
-Port of ``open_pcc_metric_tpu/evaluate.py``: load clouds onto a torch
-device, run the fused pair evaluation, fill the reference-ordered metric
-table. The lazy metric-DAG engine comes with a later slice.
+Port of ``open_pcc_metric_tpu/evaluate.py``, the reference's library path
+(SURVEY §3.4): load clouds onto a torch device (the CUDA device unless one
+is named), then evaluate the reference-ordered metric table with the fused
+engine or the lazy metric DAG (``CloudPair -> MetricCalculator``).
 """
 from __future__ import annotations
 
@@ -12,8 +13,9 @@ import numpy as np
 import torch
 
 from . import metric as M
-from .calculator import CalculateResult
+from .calculator import CalculateResult, MetricCalculator
 from .cloud import Cloud
+from .cloud_pair import CloudPair
 from .io import read_point_cloud
 from .options import CalculateOptions, transform_options
 
@@ -49,20 +51,23 @@ def evaluate_pair(
     """Evaluate the option-selected metric table for one pair, on the
     clouds' device.
 
-    engine: "fused" (and "auto") — one fused evaluation + host epilogue
-    (ops/fused.py). "dag" — the reference-shaped lazy metric DAG — is not
-    ported yet.
+    engine:
+      * "fused" (and "auto") — one fused evaluation + host epilogue
+        (ops/fused.py); covers every metric reachable from CalculateOptions.
+      * "dag" — the reference-shaped lazy metric DAG (CloudPair +
+        MetricCalculator); use for custom or partial metric lists.
+    Both give the same table. ``backend``: "auto", "pruned" or "brute"
+    (aliases "pallas", "jnp"), as ``ops/nn.resolve_backend`` reads it.
     """
     options = options or CalculateOptions()
     if engine == "auto":
         engine = "fused"
-    if engine == "dag":
-        raise NotImplementedError(
-            "engine='dag' (the lazy metric DAG) comes with a later slice; "
-            "use engine='fused'")
-    if engine != "fused":
+    if engine == "fused":
+        return _evaluate_pair_fused(origin, reconst, options, backend)
+    if engine != "dag":
         raise ValueError(f"unknown engine {engine!r}")
-    return _evaluate_pair_fused(origin, reconst, options, backend)
+    calculator = MetricCalculator(CloudPair(origin, reconst, backend=backend))
+    return calculator.calculate(transform_options(options))
 
 
 def _evaluate_pair_fused(
@@ -125,6 +130,8 @@ def evaluate_files(
     backend: str = "auto",
     device: Device = None,
 ) -> CalculateResult:
+    """Load two files onto ``device`` (the CUDA device when None; raises
+    when there is none) and evaluate them with ``evaluate_pair``."""
     origin = load_cloud(ocloud, dtype=dtype, device=device)
     reconst = load_cloud(pcloud, dtype=dtype, device=device)
     return evaluate_pair(origin, reconst, options, backend=backend)

@@ -14,6 +14,8 @@ import argparse
 import sys
 import typing
 
+from .ops.nn import BACKENDS
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -44,8 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["float32", "float64"], default="float32",
                    help="Compute dtype (the CUDA kernel takes float32; "
                         "default: float32).")
-    p.add_argument("--backend", choices=["auto", "pruned"], default="auto",
-                   help="NN backend (auto = pruned; default: auto).")
+    p.add_argument("--backend", choices=list(BACKENDS), default="auto",
+                   help="NN backend: brute (pallas and jnp are its aliases) "
+                        "or pruned; auto takes the brute force below 65536 "
+                        "padded rows and the pruned search above "
+                        "(default: auto).")
     p.add_argument("--device", default="cuda",
                    help="Torch device to evaluate on (default: cuda).")
     return p

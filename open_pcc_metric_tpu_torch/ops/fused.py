@@ -1,12 +1,14 @@
 """Fused pair evaluation: every reduction the metric table needs, one pass.
 
-Port of the pruned path of ``open_pcc_metric_tpu/ops/fused.py``: both NN
-directions and the intra-origin self-NN run through the pruned search
-(``nn_pruned.nn_pruned_sorted``), and every sum the table needs — squared
-errors, running maxes (Hausdorff), per-channel colour errors on gathered
-neighbours — is reduced on the clouds' device in Morton-sorted space. Only
-scalars and 3-vectors leave the device; the host then applies the OBB peak
-and log10s (``finalize_stats``).
+Port of ``open_pcc_metric_tpu/ops/fused.py`` (its stepwise path): both NN
+directions and the intra-origin self-NN, then every sum the table needs —
+squared errors, running maxes (Hausdorff), per-channel colour errors on
+gathered neighbours — reduced on the clouds' device. Clouds at or above
+``nn.PRUNE_THRESHOLD`` padded rows go through the pruned search
+(``nn_pruned.nn_pruned_sorted``, K1) in Morton-sorted space with the
+certificate ladder; smaller ones through the brute force (``nn.nn_argmin``,
+K5) in original order. Only scalars and 3-vectors leave the device; the
+host then applies the OBB peak and log10s (``finalize_stats``).
 
 Under point-to-plane a cloud without normals gets them estimated
 (``Cloud.get_normals``: 30-NN PCA through the pruned k-NN with in-kernel
@@ -21,6 +23,7 @@ import typing
 import numpy as np
 import torch
 
+from . import nn as nn_ops
 from .color import get_color_peak, transform_colors
 from .grid import CHUNK
 from .nn_pruned import nn_pruned_sorted
@@ -28,9 +31,12 @@ from ..utils.cache import ladder_lookup, ladder_store, next_rung
 
 
 def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Two-stage masked sum: 1024-row partial sums, then their sum (keeps
+    return stable_sum(torch.where(mask if x.ndim == 1 else mask[:, None], x, 0))
+
+
+def stable_sum(x: torch.Tensor) -> torch.Tensor:
+    """Two-stage sum over rows: 1024-row partial sums, then their sum (keeps
     float32 accumulation error ~sqrt(N) below a running sum)."""
-    x = torch.where(mask if x.ndim == 1 else mask[:, None], x, 0)
     n = x.shape[0]
     chunk = 1024
     if n <= chunk:
@@ -50,16 +56,60 @@ def _masked_min(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, x, torch.inf).amin(dim=0)
 
 
-def _check_backend(backend: str) -> None:
-    if backend not in ("auto", "pruned"):
-        raise NotImplementedError(
-            f"backend {backend!r}: only the pruned backend is ported; the "
-            "brute-force small-cloud backends come with a later slice")
-
-
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[idx] with indices clipped into range (JAX ``mode="clip"``)."""
     return x[idx.long().clamp(0, x.shape[0] - 1)]
+
+
+def _gather_payload(pts, col, nrm, idx, *, color_scheme, point_to_plane,
+                    d2_mode) -> typing.Dict[str, torch.Tensor]:
+    """The neighbours' points, colours and (pc_error D2) normals: one
+    concatenated row gather per direction (gathers pay per row)."""
+    parts = [pts]
+    if color_scheme is not None:
+        parts.append(col)
+    if point_to_plane and d2_mode != "reference":
+        parts.append(nrm)
+    pay = _gather_rows(torch.cat(parts, dim=1), idx)
+    out = {"pts": pay[:, :3]}
+    c = 3
+    if color_scheme is not None:
+        out["col"] = pay[:, c : c + 3]
+        c += 3
+    if point_to_plane and d2_mode != "reference":
+        out["nrm"] = pay[:, c : c + 3]
+    return out
+
+
+def _reduce_pair(out, masks, dists, queries, pays, d2_normals, query_cols,
+                 *, color_scheme, point_to_plane) -> None:
+    """Fill ``out`` with both directions' masked sums and maxima. Every
+    argument after ``out`` is a (left, right) pair: the valid-row masks,
+    the squared NN distances, the query points, the neighbour payloads
+    (``_gather_payload``), the normals each D2 error is projected on and
+    the query-side colours, all in one row order per direction."""
+    for side, mask, d in zip("lr", masks, dists):
+        out[f"d1_sse_{side}"] = _masked_sum(d, mask)
+        out[f"d1_max_{side}"] = _masked_max(d, mask)
+    if point_to_plane:
+        for side, mask, q, pay, nrm in zip("lr", masks, queries, pays,
+                                           d2_normals):
+            p = ((q - pay["pts"]) * nrm).sum(dim=1) ** 2
+            out[f"d2_sse_{side}"] = _masked_sum(p, mask)
+            out[f"d2_max_{side}"] = _masked_max(p, mask)
+    if color_scheme is not None:
+        for side, mask, col, pay in zip("lr", masks, query_cols, pays):
+            diff = (transform_colors(col, "rgb", color_scheme)
+                    - transform_colors(pay["col"], "rgb", color_scheme))
+            out[f"c_sse_{side}"] = _masked_sum(diff**2, mask)
+            if color_scheme == "rgb":  # SURVEY Q5 quirk
+                diff = 255.0 * diff
+            out[f"c_max_{side}"] = _masked_max(diff**2, mask)
+
+
+def _check_normals(a_nrm, b_nrm, point_to_plane) -> None:
+    if point_to_plane and (a_nrm is None or b_nrm is None):
+        raise ValueError("point_to_plane needs normals on both clouds")
 
 
 def _pair_stats_pruned(
@@ -75,89 +125,83 @@ def _pair_stats_pruned(
     the original arrays), and only the reference-D2 positional pairing and
     the query-side colours need a perm gather.
     """
+    _check_normals(a_nrm, b_nrm, point_to_plane)
     dev = a_pts.device
-    mask_a = torch.arange(a_pts.shape[0], device=dev) < n_a
-    mask_b = torch.arange(b_pts.shape[0], device=dev) < n_b
-
+    masks = (torch.arange(a_pts.shape[0], device=dev) < n_a,
+             torch.arange(b_pts.shape[0], device=dev) < n_b)
     kw = dict(cap=prune_cap, fallback_tiles=prune_fallback)
     d0, i0, ov0 = nn_pruned_sorted(ga, gb, n_a, **kw)
     d1, i1, ov1 = nn_pruned_sorted(gb, ga, n_b, **kw)
-
-    def gather_payload(pts, col, nrm, idx):
-        # One concatenated row gather per direction (gathers pay per row).
-        parts = [pts]
-        if color_scheme is not None:
-            parts.append(col)
-        if point_to_plane and d2_mode != "reference":
-            parts.append(nrm)
-        pay = _gather_rows(torch.cat(parts, dim=1), idx)
-        out = {"pts": pay[:, :3]}
-        c = 3
-        if color_scheme is not None:
-            out["col"] = pay[:, c : c + 3]
-            c += 3
-        if point_to_plane and d2_mode != "reference":
-            out["nrm"] = pay[:, c : c + 3]
-        return out
-
-    pay0 = gather_payload(b_pts, b_col, b_nrm, i0)
-    pay1 = gather_payload(a_pts, a_col, a_nrm, i1)
+    opts = dict(color_scheme=color_scheme, point_to_plane=point_to_plane,
+                d2_mode=d2_mode)
+    pays = (_gather_payload(b_pts, b_col, b_nrm, i0, **opts),
+            _gather_payload(a_pts, a_col, a_nrm, i1, **opts))
     overflow = ov0 | ov1
 
-    out: typing.Dict[str, typing.Any] = {
-        "n_a": n_a,
-        "n_b": n_b,
-        "d1_sse_l": _masked_sum(d0, mask_a),
-        "d1_sse_r": _masked_sum(d1, mask_b),
-        "d1_max_l": _masked_max(d0, mask_a),
-        "d1_max_r": _masked_max(d1, mask_b),
-    }
-
+    out: typing.Dict[str, typing.Any] = {"n_a": n_a, "n_b": n_b}
     if with_boundary:
         dself, _, ov2 = nn_pruned_sorted(ga, ga, n_a, exclude_self=True, **kw)
         overflow = overflow | ov2
         sqrt_self = torch.sqrt(torch.clamp(dself, min=0.0))
-        out["self_min"] = _masked_min(sqrt_self, mask_a)
-        out["self_max"] = _masked_max(sqrt_self, mask_a)
+        out["self_min"] = _masked_min(sqrt_self, masks[0])
+        out["self_max"] = _masked_max(sqrt_self, masks[0])
 
+    d2_normals = query_cols = (None, None)
     if point_to_plane:
-        if a_nrm is None or b_nrm is None:
-            raise ValueError("point_to_plane needs normals on both clouds")
-        err0 = ga.points - pay0["pts"]
-        err1 = gb.points - pay1["pts"]
         if d2_mode == "reference":
             # Positional pairing by ORIGINAL query index (SURVEY Q3).
-            n_for_0 = _gather_rows(b_nrm, ga.perm)
-            n_for_1 = _gather_rows(a_nrm, gb.perm)
+            d2_normals = (_gather_rows(b_nrm, ga.perm),
+                          _gather_rows(a_nrm, gb.perm))
         else:
-            n_for_0 = pay0["nrm"]
-            n_for_1 = pay1["nrm"]
-        p0 = (err0 * n_for_0).sum(dim=1) ** 2
-        p1 = (err1 * n_for_1).sum(dim=1) ** 2
-        out["d2_sse_l"] = _masked_sum(p0, mask_a)
-        out["d2_sse_r"] = _masked_sum(p1, mask_b)
-        out["d2_max_l"] = _masked_max(p0, mask_a)
-        out["d2_max_r"] = _masked_max(p1, mask_b)
-
+            d2_normals = (pays[0]["nrm"], pays[1]["nrm"])
     if color_scheme is not None:
-        a_col_s = a_col_sorted if a_col_sorted is not None else a_col[ga.perm.long()]
-        b_col_s = b_col_sorted if b_col_sorted is not None else b_col[gb.perm.long()]
-        t0 = transform_colors(a_col_s, "rgb", color_scheme)
-        tn0 = transform_colors(pay0["col"], "rgb", color_scheme)
-        t1 = transform_colors(b_col_s, "rgb", color_scheme)
-        tn1 = transform_colors(pay1["col"], "rgb", color_scheme)
-        diff0 = t0 - tn0
-        diff1 = t1 - tn1
-        out["c_sse_l"] = _masked_sum(diff0**2, mask_a)
-        out["c_sse_r"] = _masked_sum(diff1**2, mask_b)
-        hd0, hd1 = diff0, diff1
-        if color_scheme == "rgb":  # SURVEY Q5 quirk
-            hd0 = 255.0 * hd0
-            hd1 = 255.0 * hd1
-        out["c_max_l"] = _masked_max(hd0**2, mask_a)
-        out["c_max_r"] = _masked_max(hd1**2, mask_b)
-
+        query_cols = (
+            a_col_sorted if a_col_sorted is not None else a_col[ga.perm.long()],
+            b_col_sorted if b_col_sorted is not None else b_col[gb.perm.long()])
+    _reduce_pair(out, masks, (d0, d1), (ga.points, gb.points), pays,
+                 d2_normals, query_cols, color_scheme=color_scheme,
+                 point_to_plane=point_to_plane)
     out["nn_overflow"] = overflow
+    return out
+
+
+def _pair_stats_brute(
+    a_pts, b_pts, n_a, n_b, a_col, b_col, a_nrm, b_nrm,
+    *, color_scheme, point_to_plane, d2_mode, with_boundary,
+) -> typing.Dict[str, typing.Any]:
+    """Device reductions for one pair through the brute-force 1-NN (K5),
+    in original row order (the JAX package's brute branch of
+    ``pair_stats``)."""
+    _check_normals(a_nrm, b_nrm, point_to_plane)
+    dev = a_pts.device
+    pa, pb = a_pts.shape[0], b_pts.shape[0]
+    masks = (torch.arange(pa, device=dev) < n_a,
+             torch.arange(pb, device=dev) < n_b)
+    i0, d0 = nn_ops.nn_argmin(a_pts, b_pts)
+    i1, d1 = nn_ops.nn_argmin(b_pts, a_pts)
+    opts = dict(color_scheme=color_scheme, point_to_plane=point_to_plane,
+                d2_mode=d2_mode)
+    pays = (_gather_payload(b_pts, b_col, b_nrm, i0, **opts),
+            _gather_payload(a_pts, a_col, a_nrm, i1, **opts))
+
+    out: typing.Dict[str, typing.Any] = {"n_a": n_a, "n_b": n_b}
+    if with_boundary:
+        _, dself = nn_ops.nn_argmin(a_pts, a_pts, exclude_self=True)
+        sqrt_self = torch.sqrt(dself)  # unclamped, as the JAX brute branch
+        out["self_min"] = _masked_min(sqrt_self, masks[0])
+        out["self_max"] = _masked_max(sqrt_self, masks[0])
+
+    d2_normals = (None, None)
+    if point_to_plane:
+        if d2_mode == "reference":
+            # SURVEY Q3: the opposite cloud's normals, positionally.
+            d2_normals = (_gather_rows(b_nrm, torch.arange(pa, device=dev)),
+                          _gather_rows(a_nrm, torch.arange(pb, device=dev)))
+        else:
+            d2_normals = (pays[0]["nrm"], pays[1]["nrm"])
+    _reduce_pair(out, masks, (d0, d1), (a_pts, b_pts), pays, d2_normals,
+                 (a_col, b_col), color_scheme=color_scheme,
+                 point_to_plane=point_to_plane)
     return out
 
 
@@ -183,9 +227,17 @@ def pair_stats(
     prune_fallback: int = 256,
 ) -> typing.Dict[str, typing.Any]:
     """Device-side reductions for the full metric suite (tensors on the
-    clouds' device; ``nn_overflow`` reports certificate overflow — the
-    caller must re-run with a larger prune_cap/prune_fallback)."""
-    _check_backend(backend)
+    clouds' device). ``backend`` as ``nn.resolve_backend`` reads it: the
+    brute force (K5) works in original order and ignores the grids and
+    sorted colours; the pruned search adds ``nn_overflow``, which reports
+    certificate overflow — the caller must re-run with a larger
+    prune_cap/prune_fallback."""
+    rows = max(a_pts.shape[0], b_pts.shape[0])
+    if nn_ops.resolve_backend(backend, rows) == "brute":
+        return _pair_stats_brute(
+            a_pts, b_pts, n_a, n_b, a_col, b_col, a_nrm, b_nrm,
+            color_scheme=color_scheme, point_to_plane=point_to_plane,
+            d2_mode=d2_mode, with_boundary=with_boundary)
     from .grid import build_grid
 
     if ga is None:
@@ -320,7 +372,8 @@ def boundary_stats(cloud, backend: str = "auto", prune_cap: int = 32,
     """Cached (min, max) intra-cloud NN distances of one cloud (device
     0-d tensors). They depend only on the cloud (reference:
     cloud_pair.py:108-109), so a sweep sharing one reference cloud computes
-    the priciest NN pass once."""
+    the priciest NN pass once. ``backend`` as ``nn.resolve_backend`` reads
+    it; the pruned pass escalates from (prune_cap, prune_fallback)."""
     if cloud._boundary_stats is not None:
         return cloud._boundary_stats
     if int(cloud.n) < 2:
@@ -328,15 +381,19 @@ def boundary_stats(cloud, backend: str = "auto", prune_cap: int = 32,
             "intra-cloud NN distances need at least 2 points; the cloud "
             f"has {int(cloud.n)}"
         )
-    _check_backend(backend)
-    g = cloud.get_grid()
+    if nn_ops.resolve_backend(backend, cloud.padded_size) == "brute":
+        _, d = nn_ops.nn_argmin(cloud.points, cloud.points, exclude_self=True)
+    else:
+        g = cloud.get_grid()
 
-    def run(cap, fallback):
-        d, _, overflow = nn_pruned_sorted(
-            g, g, cloud.n, exclude_self=True, cap=cap, fallback_tiles=fallback)
-        return d, bool(overflow)
+        def run(cap, fallback):
+            d, _, overflow = nn_pruned_sorted(
+                g, g, cloud.n, exclude_self=True, cap=cap,
+                fallback_tiles=fallback)
+            return d, bool(overflow)
 
-    d, _ = _ladder(cloud.padded_size // CHUNK, run, prune_cap, prune_fallback)
+        d, _ = _ladder(cloud.padded_size // CHUNK, run, prune_cap,
+                       prune_fallback)
     mask = cloud.valid_mask()
     sqrt_d = torch.sqrt(torch.clamp(d, min=0.0))
     cloud._boundary_stats = (_masked_min(sqrt_d, mask), _masked_max(sqrt_d, mask))
@@ -369,12 +426,15 @@ def fused_evaluate(
 ) -> typing.Dict[str, np.float64]:
     """Full fused evaluation of a Cloud pair on the clouds' device.
 
-    ``prune_cap``/``prune_fallback`` are the base rung of the certificate
-    ladder; an overflowing rung escalates through ``next_rung`` (one
-    synchronous overflow readback per attempt).
+    ``backend``: "auto" takes the brute force (K5, no grids, no ladder)
+    below ``nn.PRUNE_THRESHOLD`` padded rows and the pruned search at or
+    above it; "brute" (aliases "pallas", "jnp") and "pruned" force one.
+    ``prune_cap``/``prune_fallback`` are the base rung of the pruned
+    search's certificate ladder; an overflowing rung escalates through
+    ``next_rung`` (one synchronous overflow readback per attempt).
     """
-    _check_backend(backend)
-    backend = "pruned"
+    backend = nn_ops.resolve_backend(backend,
+                                     max(a.padded_size, b.padded_size))
     if a.device != b.device or a.points.dtype != b.points.dtype:
         raise ValueError("both clouds must share one device and dtype")
     if point_to_plane and d2_mode == "reference" and a.n > b.n:
@@ -392,36 +452,40 @@ def fused_evaluate(
             "intra-cloud NN distances need at least 2 points; the cloud "
             f"has {int(a.n)}"
         )
-    ga, gb = a.get_grid(), b.get_grid()
-    a_col_sorted = b_col_sorted = None
-    if color_scheme is not None:
-        a_col_sorted = _sorted_colors(a)
-        b_col_sorted = _sorted_colors(b)
     # The self-NN pass is folded in when the origin's boundary stats are
     # not cached yet (a normal estimation above may have just cached them);
     # the result is cached either way.
     with_boundary = a._boundary_stats is None
-    memo_key = (a.padded_size, b.padded_size, str(a.points.dtype),
-                color_scheme, point_to_plane, d2_mode, backend)
-    max_chunks = max(a.padded_size, b.padded_size) // CHUNK
+    kwargs = dict(color_scheme=color_scheme, point_to_plane=point_to_plane,
+                  d2_mode=d2_mode, with_boundary=with_boundary)
 
-    def run(cap, fallback):
+    ga = gb = a_col_sorted = b_col_sorted = None
+    if backend == "pruned":
+        ga, gb = a.get_grid(), b.get_grid()
+        if color_scheme is not None:
+            a_col_sorted = _sorted_colors(a)
+            b_col_sorted = _sorted_colors(b)
+
+    def run(cap=None, fallback=None):
         stats = pair_stats(
             a.points, b.points, a.n, b.n, a.colors, b.colors,
             a_nrm, b_nrm, ga, gb, a_col_sorted, b_col_sorted,
-            color_scheme=color_scheme, point_to_plane=point_to_plane,
-            d2_mode=d2_mode, with_boundary=with_boundary, backend=backend,
-            prune_cap=cap, prune_fallback=fallback,
-        )
+            backend=backend, prune_cap=cap, prune_fallback=fallback, **kwargs)
         if not with_boundary:
             stats["self_min"], stats["self_max"] = a._boundary_stats
         host = _to_host(stats)  # one round-trip: results + overflow
-        return (stats, host), bool(host["nn_overflow"])
+        return (stats, host), bool(host.get("nn_overflow", False))
 
-    cap, fallback = ladder_lookup(_LADDER_MEMO, memo_key,
-                                  (prune_cap, prune_fallback))
-    (stats, host), rung = _ladder(max_chunks, run, cap, fallback)
-    ladder_store(_LADDER_MEMO, memo_key, rung)
+    if backend == "brute":
+        (stats, host), _ = run()
+    else:
+        memo_key = (a.padded_size, b.padded_size, str(a.points.dtype),
+                    color_scheme, point_to_plane, d2_mode, backend)
+        cap, fallback = ladder_lookup(_LADDER_MEMO, memo_key,
+                                      (prune_cap, prune_fallback))
+        (stats, host), rung = _ladder(
+            max(a.padded_size, b.padded_size) // CHUNK, run, cap, fallback)
+        ladder_store(_LADDER_MEMO, memo_key, rung)
     if with_boundary:
         a._boundary_stats = (stats["self_min"], stats["self_max"])
     # User peak (pc_error --resolution) skips the OBB entirely.

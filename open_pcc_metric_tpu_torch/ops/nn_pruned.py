@@ -1,7 +1,9 @@
 """Bound-pruned exact nearest-neighbour search over Morton chunk grids.
 
 Port of the default count-gated schedule of
-``open_pcc_metric_tpu/ops/nn_pruned.py`` ``nn_pruned_sorted``. Each
+``open_pcc_metric_tpu/ops/nn_pruned.py`` ``nn_pruned_sorted``, and of its
+original-order wrappers with the escalation ladder (``nn_pruned``,
+``nn_pruned_with_grids``). Each
 256-query Morton tile refines only its lowest-lower-bound search chunks,
 then proves itself exact with a sound certificate:
 
@@ -28,8 +30,9 @@ import typing
 
 import torch
 
-from .grid import CHUNK, ChunkGrid, bbox_lower_bounds
+from .grid import CHUNK, ChunkGrid, bbox_lower_bounds, build_grid
 from .refine import refine_nn
+from ..utils.cache import ladder_lookup, ladder_store, next_rung
 
 
 def stable_top(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -161,3 +164,70 @@ def unsort_nn_result(
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """Map sorted-query-order (dist, orig-b-idx) back to original row order."""
     return unsort_rows(ga, d_sorted), unsort_rows(ga, i_sorted)
+
+
+def nn_pruned_with_grids(
+    ga: ChunkGrid,
+    gb: ChunkGrid,
+    n_a: int,
+    exclude_self: bool = False,
+    cap: int = 32,
+    fallback_tiles: int = 128,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """Pruned 1-NN over prebuilt grids, ORIGINAL order, with escalation.
+
+    Returns ``(idx int32 (Pa,), dist_sq (Pa,))``. Building the grids once
+    per cloud (``Cloud.get_grid``) shares the Morton sort across every NN
+    pass of an evaluation.
+    """
+    nta = ga.points.shape[0] // CHUNK
+    ncb = gb.n_chunks
+    while True:
+        d_s, i_s, overflow = nn_pruned_sorted(
+            ga, gb, n_a, exclude_self=exclude_self, cap=cap,
+            fallback_tiles=fallback_tiles)
+        # Exact iff the certificate passed, or stage 1 refined every chunk.
+        if not bool(overflow) or cap >= ncb:
+            d, idx = unsort_nn_result(ga, gb, d_s, i_s)
+            return idx, d
+        cap, fallback_tiles = next_rung(cap, fallback_tiles, ncb, nta)
+
+
+# Remembers the (cap, fallback_tiles) rung that certified per problem shape,
+# with the periodic base-rung retry of utils.cache.ladder_lookup.
+_ESCALATION_MEMO: dict = {}
+
+
+def nn_pruned(
+    a_points: torch.Tensor,
+    b_points: torch.Tensor,
+    n_a: int,
+    n_b: int,
+    exclude_self: bool = False,
+    cap: int = 32,
+    fallback_tiles: int = 128,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """Exact pruned 1-NN in ORIGINAL row order with automatic escalation.
+
+    Returns ``(idx int32 (Pa,), dist_sq (Pa,))``. With ``exclude_self``
+    the search runs over ``a`` itself (``b_points`` is not read). An
+    overflowing rung escalates through ``next_rung`` until the certificate
+    passes or stage 1 covers every search chunk; the rung that worked is
+    remembered per problem shape.
+    """
+    nta = a_points.shape[0] // CHUNK
+    ncb = b_points.shape[0] // CHUNK
+    key = (a_points.shape[0], b_points.shape[0], exclude_self)
+    cap, fallback_tiles = ladder_lookup(
+        _ESCALATION_MEMO, key, (cap, fallback_tiles))
+    ga = build_grid(a_points, int(n_a))
+    gb = ga if exclude_self else build_grid(b_points, int(n_b))
+    while True:
+        d_s, i_s, overflow = nn_pruned_sorted(
+            ga, gb, int(n_a), exclude_self=exclude_self, cap=cap,
+            fallback_tiles=fallback_tiles)
+        if not bool(overflow) or cap >= ncb:
+            ladder_store(_ESCALATION_MEMO, key, (cap, fallback_tiles))
+            d, idx = unsort_nn_result(ga, gb, d_s, i_s)
+            return idx, d
+        cap, fallback_tiles = next_rung(cap, fallback_tiles, ncb, nta)

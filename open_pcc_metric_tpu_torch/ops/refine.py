@@ -308,6 +308,7 @@ _ENTRIES = {
     "refine_nn": ("pcc_refine_nn", 10, 3),
     "refine_knn": ("pcc_refine_knn", 10, 4),
     "knn_moments": ("pcc_knn_moments", 10, 2),
+    "nn_brute": ("pcc_nn_brute", 6, 5),  # K5, wrapped by ops/nn.nn_argmin
 }
 
 

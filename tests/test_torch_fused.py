@@ -77,13 +77,13 @@ def test_fused_matches_jax(d2_mode):
     ja = JCloud.from_numpy(*o, dtype=jnp.float32, thin=False)
     jb = JCloud.from_numpy(*r, dtype=jnp.float32, thin=False)
     want = jfused(ja, jb, backend="pruned", **kw)
-    a = Cloud.from_numpy(*o)
-    b = Cloud.from_numpy(*r)
-    got = fused_evaluate(a, b, **kw)
+    a = Cloud.from_numpy(*o, device="cpu")
+    b = Cloud.from_numpy(*r, device="cpu")
+    got = fused_evaluate(a, b, backend="pruned", **kw)
     assert set(got) == set(want)
     _assert_stats_close(got, want)
     # the second call reuses every per-cloud cache and gives the same table
-    again = fused_evaluate(a, b, **kw)
+    again = fused_evaluate(a, b, backend="pruned", **kw)
     for key in got:
         np.testing.assert_array_equal(np.asarray(again[key]),
                                       np.asarray(got[key]))
@@ -93,7 +93,7 @@ def _golden_pair(cfg):
     """The port's twin of tools/make_goldens.py::_clouds_for (float64)."""
     if cfg["kind"] == "voxel":
         return synthetic_voxel_pair(cfg["n"], seed=cfg["seed"],
-                                    dtype=torch.float64)
+                                    dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(cfg["seed"])
     v = rng.normal(size=(cfg["n"], 3))
     v /= np.linalg.norm(v, axis=1, keepdims=True)
@@ -102,8 +102,10 @@ def _golden_pair(cfg):
     n1 = pts1 / np.linalg.norm(pts1, axis=1, keepdims=True)
     c0 = rng.uniform(0, 1, pts0.shape)
     c1 = np.clip(c0 + rng.normal(scale=0.05, size=c0.shape), 0, 1)
-    a = Cloud.from_numpy(pts0, colors=c0, normals=v, dtype=torch.float64)
-    b = Cloud.from_numpy(pts1, colors=c1, normals=n1, dtype=torch.float64)
+    a = Cloud.from_numpy(pts0, colors=c0, normals=v, dtype=torch.float64,
+                         device="cpu")
+    b = Cloud.from_numpy(pts1, colors=c1, normals=n1, dtype=torch.float64,
+                         device="cpu")
     return a, b
 
 
@@ -118,7 +120,7 @@ def test_fused_matches_goldens(name):
     a, b = _golden_pair(cfg)
     got = fused_evaluate(
         a, b, color_scheme=cfg["color"], point_to_plane=cfg["point_to_plane"],
-        d2_mode=cfg["d2_mode"], peak=cfg["peak"])
+        d2_mode=cfg["d2_mode"], peak=cfg["peak"], backend="pruned")
     for key, want in entry["metrics"].items():
         want = np.asarray(want, dtype=np.float64)
         ours = np.asarray(got[key], dtype=np.float64)
@@ -134,8 +136,8 @@ def test_boundary_stats_match_jax():
     from open_pcc_metric_tpu.ops.fused import boundary_stats as jboundary
 
     o, _ = _pair_arrays(2)
-    a = Cloud.from_numpy(o[0])
-    mn, mx = boundary_stats(a)
+    a = Cloud.from_numpy(o[0], device="cpu")
+    mn, mx = boundary_stats(a, backend="pruned")
     jmn, jmx = jboundary(JCloud.from_numpy(o[0], dtype=jnp.float32, thin=False),
                          backend="pruned")
     assert float(mn) == float(jmn) and float(mx) == float(jmx)
@@ -198,15 +200,35 @@ def test_cli_device_defaults_to_cuda(tmp_path, capsys):
 
 
 def test_unported_paths_raise():
+    """The paths that once raised as unported now give the JAX package's
+    numbers: backend="jnp" (the brute force) and engine="dag", on a small
+    pair without normals (they are estimated); unknown names still raise."""
+    jax_on_cpu()
+    import jax.numpy as jnp
+    from open_pcc_metric_tpu import CalculateOptions as JOptions
+    from open_pcc_metric_tpu.cloud import Cloud as JCloud
+    from open_pcc_metric_tpu.evaluate import evaluate_pair as jevaluate
+    from open_pcc_metric_tpu.ops.fused import fused_evaluate as jfused
+
     o, r = _pair_arrays(4, n=600)
-    a = Cloud.from_numpy(o[0])  # no normals: they are estimated
-    b = Cloud.from_numpy(r[0])
-    out = fused_evaluate(a, b, point_to_plane=True, d2_mode="pc_error")
-    assert np.isfinite(out["d2_psnr_sym"]) and a._est_normals is not None
-    with pytest.raises(NotImplementedError):
-        evaluate_pair(a, b, CalculateOptions(), engine="dag")
-    with pytest.raises(NotImplementedError):
-        fused_evaluate(a, b, backend="jnp")
+    a = Cloud.from_numpy(o[0], device="cpu")  # no normals: they are estimated
+    b = Cloud.from_numpy(r[0], device="cpu")
+    ja = JCloud.from_numpy(o[0], dtype=jnp.float32, thin=False)
+    jb = JCloud.from_numpy(r[0], dtype=jnp.float32, thin=False)
+    kw = dict(point_to_plane=True, d2_mode="pc_error")
+    out = fused_evaluate(a, b, backend="jnp", **kw)
+    want = jfused(ja, jb, backend="jnp", **kw)
+    assert a._est_normals is not None
+    _assert_stats_close(out, want, [k for k in want if "psnr" in k])
+    dag = evaluate_pair(a, b, CalculateOptions(**kw), engine="dag").as_dict()
+    jdag = jevaluate(ja, jb, JOptions(**kw), engine="dag").as_dict()
+    assert set(dag) == set(jdag)
+    for key in (k for k in jdag if "PSNR" in k[0]):
+        assert abs(float(dag[key]) - float(jdag[key])) <= PSNR_TOL, key
+    with pytest.raises(ValueError):
+        fused_evaluate(a, b, backend="kdtree")
+    with pytest.raises(ValueError):
+        evaluate_pair(a, b, CalculateOptions(), engine="tree")
 
 
 def test_port_imports_no_jax_pandas_click():
@@ -237,7 +259,7 @@ def test_port_runs_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "import open_pcc_metric_tpu_torch as P\n"
         "from open_pcc_metric_tpu_torch.ops.fused import fused_evaluate\n"
-        "a, b = P.synthetic_voxel_pair(1500, seed=0)\n"
+        "a, b = P.synthetic_voxel_pair(1500, seed=0, device='cpu')\n"
         "r = fused_evaluate(a, b, color_scheme='ycc')\n"
         "assert 'open_pcc_metric_tpu' not in sys.modules\n"
         "print('psnr', float(r['geo_psnr_sym']))\n"
@@ -256,9 +278,12 @@ def test_cuda_fused_matches_cpu():
 
     o, r = _pair_arrays(5)
     kw = dict(color_scheme="ycc", point_to_plane=True, d2_mode="pc_error")
-    want = fused_evaluate(Cloud.from_numpy(*o), Cloud.from_numpy(*r), **kw)
+    want = fused_evaluate(Cloud.from_numpy(*o, device="cpu"),
+                          Cloud.from_numpy(*r, device="cpu"),
+                          backend="pruned", **kw)
     before = refine_nn.launches
     got = fused_evaluate(Cloud.from_numpy(*o, device="cuda"),
-                         Cloud.from_numpy(*r, device="cuda"), **kw)
+                         Cloud.from_numpy(*r, device="cuda"),
+                         backend="pruned", **kw)
     assert refine_nn.launches > before
     _assert_stats_close(got, want)

@@ -55,7 +55,7 @@ def test_cloud_buffers_match_jax():
     col = rng.uniform(0, 1, (700, 3))
     nrm = rng.normal(size=(700, 3))
     j = _jax_cloud(pts, colors=col, normals=nrm)
-    t = Cloud.from_numpy(pts, colors=col, normals=nrm)
+    t = Cloud.from_numpy(pts, colors=col, normals=nrm, device="cpu")
     assert t.n == j.n and t.padded_size == j.padded_size
     for field in ("points", "colors", "normals"):
         np.testing.assert_array_equal(getattr(t, field).numpy(),
@@ -73,7 +73,7 @@ def test_build_grid_matches_jax(kind, n):
 
     pts = _points(kind, n, seed=n)
     j = _jax_cloud(pts)
-    t = Cloud.from_numpy(pts)
+    t = Cloud.from_numpy(pts, device="cpu")
 
     jg = jgrid.build_grid(j.points, jnp.asarray(j.n))
     tg = build_grid(t.points, t.n)
@@ -98,7 +98,7 @@ def test_sentinels_sort_last(kind):
     tests/test_pruned.py::test_morton_sentinels_sort_last) and carry the
     lattice-corner code: the float clamp before the int cast at work."""
     pts = _points(kind, 5000, seed=9)
-    t = Cloud.from_numpy(pts)
+    t = Cloud.from_numpy(pts, device="cpu")
     g = build_grid(t.points, t.n)
     assert set(g.perm[t.n:].tolist()) == set(range(t.n, t.padded_size))
     assert np.all(g.codes[t.n:].numpy() == 0x3FFFFFFF)
@@ -112,7 +112,7 @@ def test_bbox_lower_bounds_matches_jax():
     from open_pcc_metric_tpu.ops import grid as jgrid
 
     pts = _points("int", 5000, seed=2)
-    t = Cloud.from_numpy(pts)
+    t = Cloud.from_numpy(pts, device="cpu")
     g = build_grid(t.points, t.n)
     want = jgrid.bbox_lower_bounds(*(jnp.asarray(x.numpy()) for x in (
         g.bbox_lo, g.bbox_hi, g.bbox_lo, g.bbox_hi)))

@@ -54,7 +54,7 @@ def test_escalation_from_tiny_cap_matches_jax():
     from open_pcc_metric_tpu.ops import knn_pruned as jkp
 
     pts = _int_points(2000, 21, 40)
-    c = Cloud.from_numpy(pts, pad_to=2048)
+    c = Cloud.from_numpy(pts, pad_to=2048, device="cpu")
     key = (2048, 2048, 10, False)
     kp._ESCALATION_MEMO.pop(key, None)
     jkp._ESCALATION_MEMO.pop(key, None)

@@ -24,7 +24,7 @@ K = 30
 
 
 def _grid(pts, pad_to=None):
-    c = Cloud.from_numpy(pts, pad_to=pad_to)
+    c = Cloud.from_numpy(pts, pad_to=pad_to, device="cpu")
     return c, c.get_grid(build="device")
 
 

@@ -39,7 +39,8 @@ def _grid(kind, n, seed, pad_to=N_TILES * CHUNK, hi=64):
         pts = rng.integers(0, hi, (n, 3)).astype(np.float64)
     else:
         pts = rng.uniform(0.0, hi, (n, 3))
-    return Cloud.from_numpy(pts, pad_to=pad_to).get_grid(build="device")
+    c = Cloud.from_numpy(pts, pad_to=pad_to, device="cpu")
+    return c.get_grid(build="device")
 
 
 def _distinct_rows(cand, ncand=None):

@@ -22,7 +22,7 @@ from test_torch_refine import EPS32, assert_float_agree, jax_on_cpu
 
 
 def _grid(pts, pad_to=None):
-    c = Cloud.from_numpy(pts, pad_to=pad_to)
+    c = Cloud.from_numpy(pts, pad_to=pad_to, device="cpu")
     return c, c.get_grid(build="device")
 
 

@@ -88,7 +88,7 @@ def test_moment_normals_match_gather_normals_and_jax():
     import jax.numpy as jnp
     from open_pcc_metric_tpu.ops.normals import normals_from_neighbors as jnfn
 
-    c = Cloud.from_numpy(_sphere(5000, 42), pad_to=5120)
+    c = Cloud.from_numpy(_sphere(5000, 42), pad_to=5120, device="cpu")
     g = c.get_grid()
     dk, ik, ov, mom = knn_pruned_sorted(g, g, c.n, 30, cap=16,
                                         fallback_tiles=64, with_moments=True)
@@ -131,15 +131,15 @@ def test_estimate_normals_cloud_matches_jax(monkeypatch):
     monkeypatch.setattr(jnops, "_PRUNE_THRESHOLD", 1024)
     rng = np.random.default_rng(43)
     pts = np.unique(rng.integers(0, 64, (6000, 3)), axis=0).astype(float)
-    c = Cloud.from_numpy(pts, pad_to=6144)
+    c = Cloud.from_numpy(pts, pad_to=6144, device="cpu")
     ours = nops.estimate_normals_cloud(c)
     jc = _jax_cloud(pts, pad_to=6144)
     theirs = np.asarray(jnops.estimate_normals_cloud(jc))
     assert np.quantile(_dots(ours[: c.n], theirs[: c.n]), 0.001) > 0.999
     assert (6144, 30) in nops._LADDER_MEMO
     mn, mx = c._boundary_stats
-    ref = Cloud.from_numpy(pts, pad_to=6144)
-    mn_ref, mx_ref = boundary_stats(ref)
+    ref = Cloud.from_numpy(pts, pad_to=6144, device="cpu")
+    mn_ref, mx_ref = boundary_stats(ref, backend="pruned")
     assert float(mn) == float(mn_ref) and float(mx) == float(mx_ref)
     assert [float(x) for x in jc._boundary_stats] == [float(mn), float(mx)]
     assert c.get_normals() is c.get_normals()  # cached on the cloud
@@ -150,7 +150,7 @@ def test_estimate_normals_cloud_matches_jax(monkeypatch):
         if pad is None:
             monkeypatch.setattr(nops, "_PRUNE_THRESHOLD", 65536)
             monkeypatch.setattr(jnops, "_PRUNE_THRESHOLD", 65536)
-        c = Cloud.from_numpy(p, pad_to=pad)
+        c = Cloud.from_numpy(p, pad_to=pad, device="cpu")
         ours = nops.estimate_normals_cloud(c)[: c.n].numpy()
         theirs = np.asarray(jnops.estimate_normals_cloud(
             _jax_cloud(p, pad_to=pad)))[: c.n]
@@ -182,9 +182,9 @@ def test_fused_without_normals_matches_jax(monkeypatch):
         kw = dict(color_scheme="ycc", point_to_plane=True, d2_mode=d2_mode)
         want = jfused(_jax_cloud(o[0], colors=o[1]),
                       _jax_cloud(r[0], colors=r[1]), backend="pruned", **kw)
-        a = Cloud.from_numpy(o[0], colors=o[1])
-        b = Cloud.from_numpy(r[0], colors=r[1])
-        got = fused_evaluate(a, b, **kw)
+        a = Cloud.from_numpy(o[0], colors=o[1], device="cpu")
+        b = Cloud.from_numpy(r[0], colors=r[1], device="cpu")
+        got = fused_evaluate(a, b, backend="pruned", **kw)
         assert set(got) == set(want)
         _assert_stats_close(got, want, [k for k in want if "psnr" in k])
         assert a._est_normals is not None and b._est_normals is not None
@@ -227,11 +227,11 @@ def test_cuda_estimation_matches_cpu(monkeypatch):
         pytest.skip("needs a CUDA device: the k-NN kernels have no CPU mode")
     monkeypatch.setattr(nops, "_PRUNE_THRESHOLD", 1024)
     pts = _sphere(5000, 45)
-    want = nops.estimate_normals_cloud(Cloud.from_numpy(pts))
+    want = nops.estimate_normals_cloud(Cloud.from_numpy(pts, device="cpu"))
     c = Cloud.from_numpy(pts, device="cuda")
     before = (refine_knn.launches, knn_moments.launches)
     got = nops.estimate_normals_cloud(c).cpu()
     assert refine_knn.launches > before[0] and knn_moments.launches > before[1]
     assert np.quantile(_dots(got[: c.n], want[: c.n]), 0.001) > 0.999
     assert float(c._boundary_stats[0]) == float(boundary_stats(
-        Cloud.from_numpy(pts))[0])
+        Cloud.from_numpy(pts, device="cpu"), backend="pruned")[0])

@@ -38,7 +38,7 @@ def _cloud(kind, n, seed, pad_to):
         pts = rng.integers(0, 64, (n, 3)).astype(np.float64)
     else:
         pts = rng.uniform(0.0, 64.0, (n, 3))
-    c = Cloud.from_numpy(pts, pad_to=pad_to)
+    c = Cloud.from_numpy(pts, pad_to=pad_to, device="cpu")
     return c, c.get_grid(build="device")
 
 
@@ -203,8 +203,8 @@ def test_duplicate_points_lowest_id_wins():
     base = rng.integers(0, 32, (600, 3)).astype(np.float64)
     pts_b = np.concatenate([base, base, base])[rng.permutation(1800)]
     q = Cloud.from_numpy(rng.integers(0, 32, (1500, 3)).astype(np.float64),
-                         pad_to=2048)
-    b = Cloud.from_numpy(pts_b, pad_to=2048)
+                         pad_to=2048, device="cpu")
+    b = Cloud.from_numpy(pts_b, pad_to=2048, device="cpu")
     qg, bg = q.get_grid(build="device"), b.get_grid(build="device")
     cand = torch.arange(bg.n_chunks, dtype=torch.int32).repeat(
         qg.n_chunks, 1)  # every chunk: the exact NN
