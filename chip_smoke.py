@@ -24,13 +24,23 @@ Hausdorff):
     with the same oracle checks;
   * the DAG path: ``evaluate_pair(engine="dag")`` on the 60k pair (K5) and
     on the 800k pair (K1 through ``nn_pruned_with_grids``), each table
-    equal to the fused engine's.
+    equal to the fused engine's;
+  * the select-prologue paths (``PCC_NN_PROLOGUE=select`` and
+    ``PCC_KNN_PROLOGUE=select``, K2a and K2b): the 800k pair with normals
+    and the 800k estimation path, in turns with the default prologue, and
+    the 2M pair (``bench.make_clouds(2_000_000)``) with normals; every
+    sweep and k-NN set bit-identical to the default prologue's, with a
+    stage split (prologue, K1, rest) of each 2M sweep. Before them, K2a and
+    K2b against their plain versions at the prologue's shapes, and the
+    prologue A/B: ``tile_bounds`` (lb, stable sort, two counts) against
+    K2a plus two K2b counts, per sweep at 800k and 2M.
 
 It prints:
 
   * the card's name and power limit (nvidia-smi),
   * each kernel's build time and ptxas resource lines,
   * one line per kernel phase, one timing line per path, with its checks,
+  * one ``prologue A/B`` line per pair size and a ``2M stage split`` line,
   * a ``{"kernels": [...]}`` JSON line (launches on the paths, error and
     times against the plain version, the bound from this run's shapes and
     data, and for K5 one PyTorch library call's time), and last
@@ -42,7 +52,9 @@ result. It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -51,6 +63,7 @@ import time
 import numpy as np
 
 N_POINTS = 800_000
+N_BIG = 2_000_000  # the 2M pair of the select-prologue A/B
 SMALL_POINTS = 60_000  # pads to 61440 rows: the largest brute-force pair
 RUNS = 5
 EST_RUNS = 3
@@ -65,13 +78,20 @@ KERNELS = {
     "refine_knn": "open_pcc_metric_tpu/ops/refine_pallas.py:861",
     "knn_moments": "open_pcc_metric_tpu/ops/refine_pallas.py:1330",
     "nn_brute": "open_pcc_metric_tpu/ops/nn_pallas.py:40",
+    "select_bbox": "open_pcc_metric_tpu/ops/select_pallas.py:117",
+    "count_bbox": "open_pcc_metric_tpu/ops/select_pallas.py:133",
 }
+SELECT_KERNELS = ("select_bbox", "count_bbox")
+PROLOGUE_ENV = ("PCC_NN_PROLOGUE", "PCC_KNN_PROLOGUE")
 # The card's published peaks (H100 SXM, NVIDIA's data sheet): float32
 # outside the tensor cores, and device memory. A kernel's bound is the
 # larger of its operations over the first and its bytes over the second.
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add and one compare per distance
 OPS_PER_MEMBER = 16  # K4: one count and 15 multiply/adds per k-NN member
+OPS_PER_BOUND = 17  # a box bound: 6 sub, 6 max, 3 mul, 2 add
+OPS_SELECT = OPS_PER_BOUND + 2  # K2a: mask and pack the key
+OPS_COUNT = OPS_PER_BOUND + 3  # K2b: mask, compare and add
 
 
 def _bit_equal(x, y) -> bool:
@@ -460,18 +480,48 @@ def _guarded(modules_names):
 
 
 def _plain_names():
-    from open_pcc_metric_tpu_torch.ops import nn, refine
+    from open_pcc_metric_tpu_torch.ops import nn, refine, select
 
     return [(refine, "refine_nn_reference"), (refine, "refine_knn_reference"),
-            (refine, "knn_moments_reference"), (nn, "nn_chunked")]
+            (refine, "knn_moments_reference"), (nn, "nn_chunked"),
+            (select, "select_bbox_reference"),
+            (select, "count_bbox_reference")]
 
 
 def _wrappers():
     """Each kernel's wrapper, which counts its launches."""
-    from open_pcc_metric_tpu_torch.ops import nn, refine
+    from open_pcc_metric_tpu_torch.ops import nn, refine, select
 
     return {"refine_nn": refine.refine_nn, "refine_knn": refine.refine_knn,
-            "knn_moments": refine.knn_moments, "nn_brute": nn.nn_argmin}
+            "knn_moments": refine.knn_moments, "nn_brute": nn.nn_argmin,
+            "select_bbox": select.select_bbox,
+            "count_bbox": select.count_bbox}
+
+
+@contextlib.contextmanager
+def _prologue_env(prologue):
+    """PCC_NN_PROLOGUE and PCC_KNN_PROLOGUE set to ``prologue`` inside."""
+    saved = {v: os.environ.get(v) for v in PROLOGUE_ENV}
+    os.environ.update({v: prologue for v in PROLOGUE_ENV})
+    try:
+        yield
+    finally:
+        for v, old in saved.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
+
+
+def _check_select_launches(label, prologue, launches):
+    """K2a and K2b launched under select, never under the default."""
+    for name in SELECT_KERNELS:
+        if prologue == "select" and launches[name] <= 0:
+            raise AssertionError(f"{label} under select launched {name} "
+                                 "no time")
+        if prologue != "select" and launches[name] != 0:
+            raise AssertionError(f"{label} under the default prologue "
+                                 f"launched {name}")
 
 
 def _reset_launches():
@@ -494,13 +544,15 @@ def main_path(origin, reconst, dev):
         lambda a, b: fused_evaluate(a, b, **kwargs))
     if launches["refine_nn"] <= 0:
         raise AssertionError("the main path launched K1 no time")
+    _check_select_launches("the main path", "xla", launches)
     return a, b, result, first_s, times, launches
 
 
-def estimation_path(origin, reconst, dev):
+def estimation_path(origin, reconst, dev, prologue="xla"):
     """fused_evaluate on the pair without normals, fresh clouds per run
-    (cold, like bench.py's PCC_BENCH_NORMALS=1): one warm-up, then the
-    median of EST_RUNS. Returns the last run's clouds and result."""
+    (cold, like bench.py's PCC_BENCH_NORMALS=1), both searches under
+    ``prologue``: one warm-up, then the median of EST_RUNS. Returns the
+    last run's clouds and result."""
     import torch
 
     from open_pcc_metric_tpu_torch.cloud import Cloud
@@ -515,23 +567,25 @@ def estimation_path(origin, reconst, dev):
     kwargs = dict(color_scheme="ycc", point_to_plane=True, d2_mode="pc_error")
     restore = _guarded(_plain_names())
     try:
-        _reset_launches()
-        a, b = make()
-        t0 = time.perf_counter()
-        result = fused_evaluate(a, b, **kwargs)
-        first_s = time.perf_counter() - t0
-        times = []
-        for _ in range(EST_RUNS):
+        with _prologue_env(prologue):
+            _reset_launches()
             a, b = make()
             t0 = time.perf_counter()
             result = fused_evaluate(a, b, **kwargs)
-            times.append(time.perf_counter() - t0)
-        launches = _launches()
+            first_s = time.perf_counter() - t0
+            times = []
+            for _ in range(EST_RUNS):
+                a, b = make()
+                t0 = time.perf_counter()
+                result = fused_evaluate(a, b, **kwargs)
+                times.append(time.perf_counter() - t0)
+            launches = _launches()
     finally:
         restore()
     for name in ("refine_nn", "refine_knn", "knn_moments"):
         if launches[name] <= 0:
             raise AssertionError(f"the estimation path launched {name} no time")
+    _check_select_launches("the estimation path", prologue, launches)
     return a, b, result, first_s, times, launches
 
 
@@ -600,17 +654,27 @@ def oracle_checks(a, b, origin, reconst, result, search, label):
     return sweeps, delta
 
 
-def pruned_search(q, s, exclude_self):
-    """The main path's pruned sweep at the rung its ladder settled on."""
+def _settled_rung(q, s):
+    """The rung the fused ladder settled on for the pair that holds the
+    clouds ``q`` and ``s`` (the base rung if it has none or several)."""
     from open_pcc_metric_tpu_torch.ops.fused import _LADDER_MEMO
+
+    sizes = {q.padded_size, s.padded_size}
+    rungs = {rung for key, (rung, _) in _LADDER_MEMO.items()
+             if sizes <= set(key[:2])}
+    return rungs.pop() if len(rungs) == 1 else (CAP, FALLBACK)
+
+
+def pruned_search(q, s, exclude_self, prologue="xla"):
+    """The main path's pruned sweep at the rung its ladder settled on."""
     from open_pcc_metric_tpu_torch.ops.nn_pruned import (
         nn_pruned_sorted, unsort_nn_result)
 
-    rungs = {rung for rung, _ in _LADDER_MEMO.values()}
-    cap, ft = rungs.pop() if len(rungs) == 1 else (CAP, FALLBACK)
+    cap, ft = _settled_rung(q, s)
     gq, gs = q.get_grid(), s.get_grid()
     d_s, i_s, ov = nn_pruned_sorted(gq, gs, q.n, exclude_self=exclude_self,
-                                    cap=cap, fallback_tiles=ft)
+                                    cap=cap, fallback_tiles=ft,
+                                    prologue=prologue)
     if bool(ov):
         raise AssertionError(f"a sweep overflowed at rung {(cap, ft)}")
     d, i = unsort_nn_result(gq, gs, d_s, i_s)
@@ -624,31 +688,47 @@ def brute_search(q, s, exclude_self):
     return nearest_neighbors(q.points, s.points, exclude_self=exclude_self)
 
 
-def estimation_checks(a, b, origin, reconst, result, sweeps):
-    """The port's 30-NN sets of both clouds against the exact float64
-    scipy oracle (0 rows may differ), its normals against float64 LAPACK
-    normals of those sets (0.001-quantile of |dot| above 0.999), and the
-    PSNRs against a float64 evaluation with those normals: D2 entries
-    within D2_TOL, the others within PSNR_TOL. Returns the numbers."""
+def estimation_checks(a, b, origin, reconst, result, sweeps, oracle,
+                      prologue="xla"):
+    """The port's 30-NN sets of both clouds (searched under ``prologue``)
+    against the exact float64 scipy oracle (0 rows may differ), its normals
+    against float64 LAPACK normals of those sets (0.001-quantile of |dot|
+    above 0.999), and the PSNRs against a float64 evaluation with those
+    normals: D2 entries within D2_TOL, the others within PSNR_TOL. Under
+    select the k-NN sets must also equal the default prologue's bit for
+    bit. ``oracle`` caches the oracle's sets and LAPACK normals by cloud.
+    Returns the numbers."""
     import bench
     from open_pcc_metric_tpu_torch.ops.knn_pruned import knn_pruned
 
     lapack = {}
     out = {}
     for name, c, pts in (("origin", a, origin[0]), ("reconst", b, reconst[0])):
-        oi, _ = bench._oracle_knn_fast(pts, pts, K)
-        idx, _ = knn_pruned(c.points, c.points, c.n, c.n, k=K,
-                            cap=KCAP, fallback_tiles=KFT)
+        if name not in oracle:
+            oi, _ = bench._oracle_knn_fast(pts, pts, K)
+            neigh = pts[oi]
+            cen = neigh - neigh.mean(axis=1, keepdims=True)
+            cov = np.einsum("nki,nkj->nij", cen, cen) / K
+            oracle[name] = (oi, np.linalg.eigh(cov)[1][:, :, 0])
+        oi, lapack[name] = oracle[name]
+        idx, dist = knn_pruned(c.points, c.points, c.n, c.n, k=K,
+                               cap=KCAP, fallback_tiles=KFT,
+                               prologue=prologue)
         bad = int(np.any(idx[: c.n].cpu().numpy() != oi, axis=1).sum())
-        neigh = pts[oi]
-        cen = neigh - neigh.mean(axis=1, keepdims=True)
-        cov = np.einsum("nki,nkj->nij", cen, cen) / K
-        lapack[name] = np.linalg.eigh(cov)[1][:, :, 0]
+        if prologue == "select":
+            idx0, dist0 = knn_pruned(c.points, c.points, c.n, c.n, k=K,
+                                     cap=KCAP, fallback_tiles=KFT,
+                                     prologue="xla")
+            if not (_bit_equal(idx[: c.n], idx0[: c.n])
+                    and _bit_equal(dist[: c.n], dist0[: c.n])):
+                raise AssertionError(f"estimation {name}: the select k-NN "
+                                     "sets differ from the default's")
+            out[f"{name}_knn_equal_to_default"] = True
         est = c._est_normals[: c.n].double().cpu().numpy()
         q001 = float(np.quantile(np.abs((est * lapack[name]).sum(1)), 0.001))
-        print(f"estimation {name}: {c.n} points, {bad} k-NN rows differ from "
-              f"the float64 oracle; normals |dot| 0.001-quantile {q001:.6f} "
-              "vs float64 LAPACK", flush=True)
+        print(f"estimation {name} ({prologue}): {c.n} points, {bad} k-NN rows "
+              "differ from the float64 oracle; normals |dot| 0.001-quantile "
+              f"{q001:.6f} vs float64 LAPACK", flush=True)
         if bad:
             raise AssertionError(f"estimation {name}: {bad} k-NN rows differ")
         if not q001 > 0.999:
@@ -660,8 +740,9 @@ def estimation_checks(a, b, origin, reconst, result, sweeps):
     deltas = _psnr_deltas(result, want)
     d2 = max(v for k, v in deltas.items() if k.startswith("d2_"))
     rest = max(v for k, v in deltas.items() if not k.startswith("d2_"))
-    print(f"estimation max |dPSNR| vs float64 evaluation: D2 entries "
-          f"{d2:.3e} dB (bar {D2_TOL:g}), D1/colour/Hausdorff {rest:.3e} dB "
+    print(f"estimation ({prologue}) max |dPSNR| vs float64 evaluation: D2 "
+          f"entries {d2:.3e} dB (bar {D2_TOL:g}), D1/colour/Hausdorff "
+          f"{rest:.3e} dB "
           f"(bar {PSNR_TOL:g})", flush=True)
     if not (d2 <= D2_TOL and rest <= PSNR_TOL):
         raise AssertionError(f"estimation PSNR parity: D2 {d2:.3e}, "
@@ -722,8 +803,8 @@ def brute_phases(a, b, float_cloud):
     return records
 
 
-def _timed_runs(make, evaluate):
-    """One warm-up and RUNS timed calls of ``evaluate`` on the clouds
+def _timed_runs(make, evaluate, runs=RUNS):
+    """One warm-up and ``runs`` timed calls of ``evaluate`` on the clouds
     ``make`` gives once, every plain version guarded and the launch counts
     set to 0 just before and read just after. Returns (clouds, result,
     first-call s, times, launches)."""
@@ -735,7 +816,7 @@ def _timed_runs(make, evaluate):
         result = evaluate(*clouds)
         first_s = time.perf_counter() - t0
         times = []
-        for _ in range(RUNS):
+        for _ in range(runs):
             t0 = time.perf_counter()
             result = evaluate(*clouds)  # ends in a host readback
             times.append(time.perf_counter() - t0)
@@ -816,6 +897,226 @@ def dag_path(origin, reconst, dev, kernel):
 
 
 
+def select_phases(cases):
+    """K2a and K2b against their plain versions on the card, at the select
+    prologue's shapes. ``cases`` are (name, query grid, search grid, valid
+    queries, cap, exclude_self). K2a must give bit-identical cand and
+    lb_sel; K2b, at the threshold of the K1 probe over K2a's first P1
+    chunks, bit-identical counts. Returns (K2a records, K2b records)."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import cert_ub, tile_boxes
+    from open_pcc_metric_tpu_torch.ops.refine import refine_nn
+    from open_pcc_metric_tpu_torch.ops.select import (
+        count_bbox, count_bbox_reference, select_bbox, select_bbox_reference)
+
+    k2a, k2b = [], []
+    for name, gq, gs, nq, cap, ex in cases:
+        valid_t, a_lo, a_hi = tile_boxes(gq, nq)
+        boxes = (a_lo, a_hi, gs.bbox_lo, gs.bbox_hi)
+        nta, ncb = a_lo.shape[0], gs.n_chunks
+        cap = min(cap, ncb)
+        cand, lb_sel = select_bbox(*boxes, cap)
+        torch.cuda.synchronize()
+        want_c, want_l = select_bbox_reference(*boxes, cap)
+        if not (_bit_equal(cand, want_c) and _bit_equal(lb_sel, want_l)):
+            bad = int(((cand != want_c) | (lb_sel != want_l)).sum())
+            raise AssertionError(f"K2a phase {name}: {bad} entries differ "
+                                 "from select_bbox_reference")
+        bound_ms, bound_by = _bound(OPS_SELECT * nta * ncb, boxes,
+                                    [cand, lb_sel])
+        rec = {
+            "phase": name, "tiles": nta, "chunks": ncb, "cap": cap,
+            "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: select_bbox(*boxes, cap), 20),
+            "plain_ms": _time_ms(lambda: select_bbox_reference(*boxes, cap),
+                                 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        }
+        print("kernel phase K2a " + json.dumps(rec), flush=True)
+        k2a.append(rec)
+
+        d1, _ = refine_nn(gq.points, gs.points, gs.perm,
+                          cand[:, :P1].contiguous(), exclude_self=ex)
+        thr = cert_ub(d1, valid_t)
+        cnt = count_bbox(*boxes, thr)
+        torch.cuda.synchronize()
+        want = count_bbox_reference(*boxes, thr)
+        if not _bit_equal(cnt, want):
+            raise AssertionError(f"K2b phase {name}: {int((cnt != want).sum())}"
+                                 " counts differ from count_bbox_reference")
+        bound_ms, bound_by = _bound(OPS_COUNT * nta * ncb, [*boxes, thr],
+                                    [cnt])
+        rec = {
+            "phase": name + " (probe threshold)", "tiles": nta, "chunks": ncb,
+            "mean_count": float(cnt.float().mean()), "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: count_bbox(*boxes, thr), 20),
+            "plain_ms": _time_ms(lambda: count_bbox_reference(*boxes, thr), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        }
+        print("kernel phase K2b " + json.dumps(rec), flush=True)
+        k2b.append(rec)
+    return k2a, k2b
+
+
+def prologue_ab(label, sweeps, smi):
+    """The two prologues of one sweep, timed in turns (default, select,
+    select, default; CUDA events, mean of 10 calls each turn): the default
+    is ``tile_bounds`` (the lb matrix and its stable sort) and the two
+    certificate counts over the matrix, select is K2a and two K2b counts,
+    both at the thresholds the sweep itself reaches (the probe's and
+    stage 1's). ``sweeps`` are (name, query grid, search grid, valid
+    queries, exclude_self). Returns {sweep: {"xla": ms, "select": ms}}."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import (
+        cert_ub, count_under, nn_pruned_sorted, tile_bounds, tile_boxes)
+    from open_pcc_metric_tpu_torch.ops.refine import refine_nn
+    from open_pcc_metric_tpu_torch.ops.select import count_bbox, select_bbox
+
+    out = {}
+    for name, gq, gs, nq, ex in sweeps:
+        valid_t, a_lo, a_hi = tile_boxes(gq, nq)
+        boxes = (gs.bbox_lo, gs.bbox_hi)
+        cap = min(CAP, gs.n_chunks)
+        cand, _ = select_bbox(a_lo, a_hi, *boxes, cap)
+        d1, _ = refine_nn(gq.points, gs.points, gs.perm,
+                          cand[:, :P1].contiguous(), exclude_self=ex)
+        thr1 = cert_ub(d1, valid_t)
+        d_s = nn_pruned_sorted(gq, gs, nq, exclude_self=ex, cap=CAP,
+                               fallback_tiles=FALLBACK)[0]
+        thr2 = cert_ub(d_s.reshape(valid_t.shape), valid_t)
+        del cand, d1, d_s
+
+        def default():
+            _, lb, order = tile_bounds(gq, gs, nq)
+            return order, count_under(lb, thr1), count_under(lb, thr2)
+
+        def select():
+            _, lo, hi = tile_boxes(gq, nq)
+            order, _ = select_bbox(lo, hi, *boxes, cap)
+            return order, count_bbox(lo, hi, *boxes, thr1), count_bbox(
+                lo, hi, *boxes, thr2)
+
+        turns = {"xla": [], "select": []}
+        for prologue in ("xla", "select", "select", "xla"):
+            fn = select if prologue == "select" else default
+            turns[prologue].append(_time_ms(fn, 10))
+            torch.cuda.empty_cache()
+        out[name] = {
+            "tiles": int(valid_t.shape[0]), "chunks": int(gs.n_chunks),
+            "xla_ms": statistics.mean(turns["xla"]),
+            "select_ms": statistics.mean(turns["select"]),
+            "turns_ms": turns,
+        }
+        out[name]["speedup"] = out[name]["xla_ms"] / out[name]["select_ms"]
+    print(f"prologue A/B {label} " + json.dumps(
+        {"cap": CAP, "sweeps": out, "card": smi}), flush=True)
+    return out
+
+
+def _sweeps(a, b):
+    return (("a->b", a, b, False), ("b->a", b, a, False),
+            ("self a->a", a, a, True))
+
+
+def sweeps_identical(a, b, label, oracle=None):
+    """Each of the three sweeps under select equals the default prologue's
+    bit for bit on the valid rows (and, given ``oracle`` sweeps, has 0 rows
+    off them). Returns the rows off the oracle per sweep."""
+    off = {}
+    for name, q, s, ex in _sweeps(a, b):
+        i0, d0 = pruned_search(q, s, ex, "xla")
+        i1, d1 = pruned_search(q, s, ex, "select")
+        if not (_bit_equal(i0[: q.n], i1[: q.n])
+                and _bit_equal(d0[: q.n], d1[: q.n])):
+            raise AssertionError(f"{label} sweep {name}: select differs from "
+                                 "the default prologue")
+        if oracle is not None:
+            oi, od = oracle[name]
+            off[name] = int(np.sum((oi != i1[: q.n].cpu().numpy())
+                                   | (od != d1[: q.n].double().cpu().numpy())))
+            if off[name]:
+                raise AssertionError(f"{label} sweep {name} under select: "
+                                     f"{off[name]} rows off the oracle")
+    return off
+
+
+def prologue_path(label, make, evaluate, runs, smi, kernel="refine_nn"):
+    """``evaluate`` on clouds from ``make`` in turns (select, default,
+    default, select), each turn one warm-up and ``runs`` timed calls
+    (``_timed_runs``) under PCC_NN_PROLOGUE and PCC_KNN_PROLOGUE. Every
+    table must equal the first bit for bit; K2a/K2b launch under select
+    only, ``kernel`` under both. Returns (last clouds, select launches of
+    the first turn, the record to print, the first table)."""
+    turns = {"select": [], "xla": []}
+    launches_sel = None
+    first = None
+    for prologue in ("select", "xla", "xla", "select"):
+        with _prologue_env(prologue):
+            clouds, result, first_s, times, launches = _timed_runs(
+                make, evaluate, runs)
+        _check_select_launches(label, prologue, launches)
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{label} launched {kernel} no time")
+        if first is None:
+            first = result
+        elif any(not np.array_equal(np.asarray(result[k]),
+                                    np.asarray(first[k])) for k in first):
+            raise AssertionError(f"{label}: the {prologue} table differs")
+        if prologue == "select" and launches_sel is None:
+            launches_sel = launches
+        n = clouds[0].n + clouds[1].n
+        med = statistics.median(times)
+        turns[prologue].append({"first_call_s": first_s, "median_s": med,
+                                "mpts_per_s": n / med / 1e6})
+    rec = {"n_points": n, "runs": runs, "turns": turns,
+           "table_equal": True,
+           "launches_select": {k: v for k, v in launches_sel.items() if v},
+           "card": smi}
+    return clouds, launches_sel, rec, first
+
+
+def stage_split(a, b, smi, ab):
+    """Per sweep of the pair and per prologue: the sweep's stream time, the
+    prologue's (``ab``, from ``prologue_ab``), the time of its K1 launches
+    replayed alone, and the rest. CUDA events, mean of 5."""
+    from open_pcc_metric_tpu_torch.ops import nn_pruned as nn_mod
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import nn_pruned_sorted
+
+    cap, ft = _settled_rung(a, b)
+    out = {}
+    for name, q, s, ex in _sweeps(a, b):
+        gq, gs = q.get_grid(), s.get_grid()
+        for prologue in ("xla", "select"):
+            def sweep():
+                return nn_pruned_sorted(gq, gs, q.n, exclude_self=ex, cap=cap,
+                                        fallback_tiles=ft, prologue=prologue)
+
+            calls = []
+            real = nn_mod.refine_nn
+
+            def spy(*args, **kw):
+                calls.append((args, kw))
+                return real(*args, **kw)
+
+            nn_mod.refine_nn = spy
+            try:
+                sweep()
+            finally:
+                nn_mod.refine_nn = real
+            total = _time_ms(sweep, 5)
+            k1 = _time_ms(lambda: [real(*x, **kw) for x, kw in calls], 5)
+            pro = ab[name][f"{prologue}_ms"]
+            out[f"{name} {prologue}"] = {
+                "sweep_ms": total, "prologue_ms": pro, "k1_ms": k1,
+                "k1_launches": len(calls), "rest_ms": total - pro - k1}
+            del calls
+    print("2M stage split " + json.dumps({"rung": [cap, ft], "sweeps": out,
+                                          "card": smi}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -839,6 +1140,7 @@ def main() -> int:
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(dev)}", flush=True)
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     built = _build.load_many(list(KERNELS))
@@ -863,7 +1165,17 @@ def main() -> int:
     fcloud = Cloud.from_numpy(float_pts, device=dev)
     records = kernel_phases(a, b, fcloud)
     k3_recs, k4_recs = knn_phases(a, fcloud)
-    del a, b, fcloud
+    ga, gb, gf = a.get_grid(), b.get_grid(), fcloud.get_grid()
+    k2a_recs, k2b_recs = select_phases([
+        ("800k a->b", ga, gb, a.n, CAP, False),
+        ("800k b->a", gb, ga, b.n, CAP, False),
+        ("800k a->b escalated cap", ga, gb, a.n, 512, False),
+        ("800k float a->b", gf, gb, fcloud.n, CAP, False),
+    ])
+    prologue_ab("800k", [("a->b", ga, gb, a.n, False),
+                         ("b->a", gb, ga, b.n, False),
+                         ("self a->a", ga, ga, a.n, True)], smi)
+    del a, b, fcloud, ga, gb, gf
     torch.cuda.empty_cache()
 
     a, b, result, first_s, times, launches = main_path(origin, reconst, dev)
@@ -880,6 +1192,22 @@ def main() -> int:
     del a, b
     torch.cuda.empty_cache()
 
+    # The select prologue on the 800k pair with normals, in turns.
+    kwargs = dict(color_scheme="ycc", point_to_plane=True, d2_mode="pc_error")
+    from open_pcc_metric_tpu_torch.ops.fused import fused_evaluate
+
+    (a, b), sel_launches, rec, table = prologue_path(
+        "the 800k select path", lambda: _pair_clouds(origin, reconst, dev),
+        lambda a, b: fused_evaluate(a, b, **kwargs), RUNS, smi)
+    if any(not np.array_equal(np.asarray(result[k]), np.asarray(table[k]))
+           for k in result):
+        raise AssertionError("the select table differs from the main path's")
+    rec["sweep_rows_off_oracle"] = sweeps_identical(a, b, "800k", sweeps)
+    rec["sweeps_bit_identical_to_default"] = True
+    print("select path 800k " + json.dumps(rec), flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+
     ea, eb, est_result, est_first, est_times, est_launches = estimation_path(
         origin, reconst, dev)
     est_med = statistics.median(est_times)
@@ -892,7 +1220,23 @@ def main() -> int:
         "k4_launches": est_launches["knn_moments"],
         "card": smi,
     }), flush=True)
-    estimation_checks(ea, eb, origin, reconst, est_result, sweeps)
+    knn_oracle = {}
+    estimation_checks(ea, eb, origin, reconst, est_result, sweeps, knn_oracle)
+    del ea, eb
+    torch.cuda.empty_cache()
+    ea, eb, sel_est_result, sel_first, sel_times, sel_est_launches = (
+        estimation_path(origin, reconst, dev, prologue="select"))
+    sel_med = statistics.median(sel_times)
+    sel_checks = estimation_checks(ea, eb, origin, reconst, sel_est_result,
+                                   sweeps, knn_oracle, prologue="select")
+    print("select estimation path " + json.dumps({
+        "n_points": n_total, "first_call_s": sel_first,
+        "times_s": sel_times, "median_s": sel_med,
+        "mpts_per_s": n_total / sel_med / 1e6,
+        "default_median_s": est_med,
+        "launches": {k: v for k, v in sel_est_launches.items() if v},
+        "checks": sel_checks, "card": smi,
+    }), flush=True)
     del ea, eb
     torch.cuda.empty_cache()
     dag_big = dag_path(origin, reconst, dev, "refine_nn")
@@ -929,6 +1273,38 @@ def main() -> int:
     print("dag path " + json.dumps({"small pair (K5)": dag_small,
                                     "800k pair (K1)": dag_big,
                                     "card": smi}), flush=True)
+    torch.cuda.empty_cache()
+
+    # The 2M pair: K2a/K2b phases, the prologue A/B, the pair in turns and
+    # a stage split per sweep.
+    t0 = time.perf_counter()
+    b_origin, b_reconst = bench.make_clouds(N_BIG)
+    a = Cloud.from_numpy(b_origin[0], device=dev)
+    b = Cloud.from_numpy(b_reconst[0], device=dev)
+    ga, gb = a.get_grid(), b.get_grid()
+    print(f"2M clouds: {a.n} + {b.n} points, padded {a.padded_size} and "
+          f"{b.padded_size} rows ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    more_a, more_b = select_phases([
+        ("2M a->b", ga, gb, a.n, CAP, False),
+        ("2M self a->a", ga, ga, a.n, CAP, True),
+    ])
+    k2a_recs += more_a
+    k2b_recs += more_b
+    ab_2m = prologue_ab("2M", [("a->b", ga, gb, a.n, False),
+                               ("b->a", gb, ga, b.n, False),
+                               ("self a->a", ga, ga, a.n, True)], smi)
+    del a, b, ga, gb
+    torch.cuda.empty_cache()
+    (a, b), _, rec, _ = prologue_path(
+        "the 2M pair", lambda: _pair_clouds(b_origin, b_reconst, dev),
+        lambda a, b: fused_evaluate(a, b, **kwargs), RUNS, smi)
+    sweeps_identical(a, b, "2M")
+    rec["sweeps_bit_identical_to_default"] = True
+    print("select path 2M " + json.dumps(rec), flush=True)
+    stage_split(a, b, smi, ab_2m)
+    del a, b
+    torch.cuda.empty_cache()
 
     for name in ("jax", "open_pcc_metric_tpu"):
         if name in sys.modules:
@@ -936,9 +1312,12 @@ def main() -> int:
     path_launches = {"refine_nn": launches["refine_nn"],
                      "refine_knn": est_launches["refine_knn"],
                      "knn_moments": est_launches["knn_moments"],
-                     "nn_brute": s_launches["nn_brute"]}
+                     "nn_brute": s_launches["nn_brute"],
+                     "select_bbox": sel_launches["select_bbox"],
+                     "count_bbox": sel_launches["count_bbox"]}
     phase_recs = {"refine_nn": records, "refine_knn": k3_recs,
-                  "knn_moments": k4_recs, "nn_brute": k5_recs}
+                  "knn_moments": k4_recs, "nn_brute": k5_recs,
+                  "select_bbox": k2a_recs, "count_bbox": k2b_recs}
     kernels = []
     for name in KERNELS:
         full = _full_phase(phase_recs[name])
@@ -958,6 +1337,7 @@ def main() -> int:
         })
         if kernels[-1]["launches"] <= 0:
             raise AssertionError(f"{name} was launched on no path")
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,17 @@
-// Pieces shared by the package's refine kernels: K1 (refine_nn.cu), K3
-// (refine_knn.cu) and K4 (knn_moments.cu).
+// Pieces shared by the package's kernels: the refines K1 (refine_nn.cu),
+// K3 (refine_knn.cu) and K4 (knn_moments.cu), the brute force K5
+// (nn_brute.cu) and the select prologue K2a (select_bbox.cu) and K2b
+// (count_bbox.cu).
 //
-// The three kernels must see bit-identical squared distances: K4 decides
+// The refine kernels must see bit-identical squared distances: K4 decides
 // whether a candidate belongs to a query's k-NN set by comparing its
 // distance with the k-th distance that K3 stored. So the distance is
 // defined once, here, with every step rounded on its own
 // (__fsub_rn/__fmul_rn/__fadd_rn; the sources are also built with
 // -fmad=false): d = ((dx*dx + dy*dy) + dz*dz), dx = b - q. That is the
-// uncontracted expression the plain PyTorch versions evaluate.
+// uncontracted expression the plain PyTorch versions evaluate. K2a and K2b
+// likewise share one box lower bound (bbox_lb), so a select-space count is
+// taken over the very bounds the selection ordered.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,6 +58,26 @@ __device__ __forceinline__ void stage_chunk(Rec* chunk, const float* b,
   const int64_t src = static_cast<int64_t>(c) * kChunk + lane;
   chunk[lane] = Rec{b[src * 3 + 0], b[src * 3 + 1], b[src * 3 + 2],
                     b_orig[src]};
+}
+
+// Squared-distance lower bound between the box (alo, ahi) and the box
+// (blo, bhi), three floats per corner: per axis, x then y then z, gap =
+// max(max(alo - bhi, blo - ahi), 0), and lb = ((gx*gx + gy*gy) + gz*gz),
+// each step rounded on its own: ops/grid.py bbox_lower_bounds bit for bit.
+// A gap of -0 squares to +0, so lb is never -0 and its bits order as an
+// integer; boxes at +-FLT_MAX (tiles with no valid row) give lb = +inf.
+__device__ __forceinline__ float bbox_lb(const float* alo, const float* ahi,
+                                         const float* blo, const float* bhi) {
+  float lb = 0.0f;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float g =
+        fmaxf(fmaxf(__fsub_rn(alo[d], bhi[d]), __fsub_rn(blo[d], ahi[d])),
+              0.0f);
+    const float sq = __fmul_rn(g, g);
+    lb = d == 0 ? sq : __fadd_rn(lb, sq);
+  }
+  return lb;
 }
 
 }  // namespace pcc

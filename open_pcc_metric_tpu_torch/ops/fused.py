@@ -26,7 +26,7 @@ import torch
 from . import nn as nn_ops
 from .color import get_color_peak, transform_colors
 from .grid import CHUNK
-from .nn_pruned import nn_pruned_sorted
+from .nn_pruned import NN_PROLOGUE_ENV, nn_pruned_sorted, resolve_prologue
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
 
 
@@ -116,20 +116,21 @@ def _pair_stats_pruned(
     a_pts, b_pts, n_a, n_b, a_col, b_col, a_nrm, b_nrm, ga, gb,
     a_col_sorted=None, b_col_sorted=None,
     *, color_scheme, point_to_plane, d2_mode, with_boundary,
-    prune_cap, prune_fallback,
+    prune_cap, prune_fallback, prologue,
 ) -> typing.Dict[str, typing.Any]:
     """Device reductions for one pair, evaluated in Morton-sorted space.
 
     Sorted-row validity is ``row < n`` (sentinels sort last), neighbour
     indices come back in ORIGINAL order (so colour/normal/point gathers hit
     the original arrays), and only the reference-D2 positional pairing and
-    the query-side colours need a perm gather.
+    the query-side colours need a perm gather. Every sweep runs
+    ``prologue``.
     """
     _check_normals(a_nrm, b_nrm, point_to_plane)
     dev = a_pts.device
     masks = (torch.arange(a_pts.shape[0], device=dev) < n_a,
              torch.arange(b_pts.shape[0], device=dev) < n_b)
-    kw = dict(cap=prune_cap, fallback_tiles=prune_fallback)
+    kw = dict(cap=prune_cap, fallback_tiles=prune_fallback, prologue=prologue)
     d0, i0, ov0 = nn_pruned_sorted(ga, gb, n_a, **kw)
     d1, i1, ov1 = nn_pruned_sorted(gb, ga, n_b, **kw)
     opts = dict(color_scheme=color_scheme, point_to_plane=point_to_plane,
@@ -225,13 +226,15 @@ def pair_stats(
     backend: str = "pruned",
     prune_cap: int = 32,
     prune_fallback: int = 256,
+    prologue: typing.Optional[str] = None,
 ) -> typing.Dict[str, typing.Any]:
     """Device-side reductions for the full metric suite (tensors on the
     clouds' device). ``backend`` as ``nn.resolve_backend`` reads it: the
     brute force (K5) works in original order and ignores the grids and
     sorted colours; the pruned search adds ``nn_overflow``, which reports
     certificate overflow — the caller must re-run with a larger
-    prune_cap/prune_fallback."""
+    prune_cap/prune_fallback. ``prologue`` is the pruned sweeps'
+    (``nn_pruned``), by default ``PCC_NN_PROLOGUE`` read at this call."""
     rows = max(a_pts.shape[0], b_pts.shape[0])
     if nn_ops.resolve_backend(backend, rows) == "brute":
         return _pair_stats_brute(
@@ -250,6 +253,7 @@ def pair_stats(
         color_scheme=color_scheme, point_to_plane=point_to_plane,
         d2_mode=d2_mode, with_boundary=with_boundary,
         prune_cap=prune_cap, prune_fallback=prune_fallback,
+        prologue=resolve_prologue(prologue, NN_PROLOGUE_ENV),
     )
 
 
@@ -368,12 +372,14 @@ def _ladder(n_chunks: int, run, cap: int, fallback: int):
 
 
 def boundary_stats(cloud, backend: str = "auto", prune_cap: int = 32,
-                   prune_fallback: int = 256):
+                   prune_fallback: int = 256,
+                   prologue: typing.Optional[str] = None):
     """Cached (min, max) intra-cloud NN distances of one cloud (device
     0-d tensors). They depend only on the cloud (reference:
     cloud_pair.py:108-109), so a sweep sharing one reference cloud computes
     the priciest NN pass once. ``backend`` as ``nn.resolve_backend`` reads
-    it; the pruned pass escalates from (prune_cap, prune_fallback)."""
+    it; the pruned pass escalates from (prune_cap, prune_fallback) with
+    ``prologue``, by default ``PCC_NN_PROLOGUE`` read at this call."""
     if cloud._boundary_stats is not None:
         return cloud._boundary_stats
     if int(cloud.n) < 2:
@@ -385,11 +391,12 @@ def boundary_stats(cloud, backend: str = "auto", prune_cap: int = 32,
         _, d = nn_ops.nn_argmin(cloud.points, cloud.points, exclude_self=True)
     else:
         g = cloud.get_grid()
+        prologue = resolve_prologue(prologue, NN_PROLOGUE_ENV)
 
         def run(cap, fallback):
             d, _, overflow = nn_pruned_sorted(
                 g, g, cloud.n, exclude_self=True, cap=cap,
-                fallback_tiles=fallback)
+                fallback_tiles=fallback, prologue=prologue)
             return d, bool(overflow)
 
         d, _ = _ladder(cloud.padded_size // CHUNK, run, prune_cap,
@@ -431,8 +438,12 @@ def fused_evaluate(
     above it; "brute" (aliases "pallas", "jnp") and "pruned" force one.
     ``prune_cap``/``prune_fallback`` are the base rung of the pruned
     search's certificate ladder; an overflowing rung escalates through
-    ``next_rung`` (one synchronous overflow readback per attempt).
+    ``next_rung`` (one synchronous overflow readback per attempt). The
+    pruned sweeps' prologue is ``PCC_NN_PROLOGUE`` and the estimation's
+    ``PCC_KNN_PROLOGUE``, both read at this call ("select" selects the
+    fused select prologue, K2a/K2b).
     """
+    prologue = resolve_prologue(None, NN_PROLOGUE_ENV)
     backend = nn_ops.resolve_backend(backend,
                                      max(a.padded_size, b.padded_size))
     if a.device != b.device or a.points.dtype != b.points.dtype:
@@ -470,7 +481,8 @@ def fused_evaluate(
         stats = pair_stats(
             a.points, b.points, a.n, b.n, a.colors, b.colors,
             a_nrm, b_nrm, ga, gb, a_col_sorted, b_col_sorted,
-            backend=backend, prune_cap=cap, prune_fallback=fallback, **kwargs)
+            backend=backend, prune_cap=cap, prune_fallback=fallback,
+            prologue=prologue, **kwargs)
         if not with_boundary:
             stats["self_min"], stats["self_max"] = a._boundary_stats
         host = _to_host(stats)  # one round-trip: results + overflow

@@ -2,12 +2,12 @@
 
 Port of the default count-gated schedule of
 ``open_pcc_metric_tpu/ops/knn_pruned.py`` (``KnnFlags()``: sched "counted",
-p1 = 8, one slot per step, no sorted-slice or two-level extension, the
-plain lower-bound prologue). The structure is ``nn_pruned``'s with a k-best
-selection: each 256-query tile refines a prefix of its lowest-lower-bound
-chunks, then certifies itself with ub = max over its valid queries of the
-k-th refined distance; tiles that fail are re-refined in two wider tiers,
-and only if those fail too does the call report ``overflow``.
+p1 = 8, one slot per step, no sorted-slice or two-level extension). The
+structure is ``nn_pruned``'s with a k-best selection: each 256-query tile
+refines a prefix of its lowest-lower-bound chunks, then certifies itself
+with ub = max over its valid queries of the k-th refined distance; tiles
+that fail are re-refined in two wider tiers, and only if those fail too
+does the call report ``overflow``.
 
 Every refine goes through ``refine.refine_knn`` (K3), whose merge keeps the
 lexicographic (distance, original index) k-best whatever the visit order,
@@ -16,6 +16,19 @@ so the k-set equals every other exact backend's, ties included. With
 query-relative offsets of each query's k-NN set over the same candidate
 schedule: the normal estimation needs only those sums, never a (P, k, 3)
 neighbour gather.
+
+The stage-1 candidates and counts come from one of ``nn_pruned``'s two
+prologues, chosen per call (``prologue``; the public entry points read
+``PCC_KNN_PROLOGUE``): the lb matrix ("xla", the default) or K2a/K2b
+("select", on the counted schedule of a float32 cloud with a whole number
+of 8-tile groups, the JAX package's gate). In select mode the tiers refine
+their full true-lb prefix, seeded, and the moments of every tier tile that
+stage 1 did not cover are summed again from zero over that prefix (the
+rounded stage-1 order shares no prefix with it, so extending would count
+chunks twice). For the same reason a select-mode tier skips the chunks its
+tiles have already refined: K3 merges a seed with chunks it has not seen
+(the TPU kernel's merge also absorbs a re-visit; the port's register
+insertion would keep a second copy).
 
 The JAX package's need-sorted slices (``_ext_sorted_slices``,
 ``_mom_sorted_slices``) and two-level extension (``_ext_two_level``) are
@@ -29,9 +42,28 @@ import typing
 import torch
 
 from .grid import CHUNK, ChunkGrid, build_grid
-from .nn_pruned import stable_top, tile_bounds, unsort_rows
+from .nn_pruned import (
+    KNN_PROLOGUE_ENV, cert_ub, count_under, resolve_prologue, run_prologue,
+    stable_top, tier_table, unsort_rows, uses_select)
 from .refine import MOM_CH, knn_moments, refine_knn
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
+
+
+def _mark(seen, cand, live):
+    """``seen`` (rows, ncb) with each row's first ``live`` chunks of
+    ``cand`` added."""
+    pos = torch.arange(cand.shape[1], device=cand.device)
+    return seen | torch.zeros_like(seen).scatter_(
+        1, cand.long(), pos < live[:, None])
+
+
+def _unseen(cand, live, seen):
+    """Each row's first ``live`` chunks of ``cand`` that ``seen`` does not
+    hold, moved to the front in their order, and how many there are."""
+    pos = torch.arange(cand.shape[1], device=cand.device)
+    keep = (pos < live[:, None]) & ~seen.gather(1, cand.long())
+    front = torch.sort((~keep).to(torch.int32), dim=1, stable=True).indices
+    return cand.gather(1, front), keep.sum(dim=1, dtype=torch.int32)
 
 
 def knn_pruned_sorted(
@@ -44,6 +76,7 @@ def knn_pruned_sorted(
     fallback_tiles: int = 128,
     with_moments: bool = False,
     p1: int = 8,
+    prologue: str = "xla",
 ) -> typing.Tuple[torch.Tensor, ...]:
     """k-NN in Morton-sorted query order; ORIGINAL neighbour indices.
 
@@ -63,74 +96,100 @@ def knn_pruned_sorted(
     gated and read in place through global tile ids. With cap <= 8 stage 1
     is one refine of all ``cap`` chunks. The moments pass walks the same
     prefixes: min(count, cap) chunks of every tile, then each tier's
-    extension, with the count taken from the final k-th distances.
+    extension (from zero over the tier's prefix in select mode), with the
+    count taken from the final k-th distances. ``prologue`` ("xla" or
+    "select") as in the module docstring.
     """
     if with_moments and exclude_self:
         raise ValueError("with_moments sums a self-inclusive k-NN set; "
                          "exclude_self is not supported with it")
     n_a = int(n_a)
-    dtype = ga.points.dtype
-    eps = torch.finfo(dtype).eps
     nta = ga.points.shape[0] // CHUNK
     ncb = gb.n_chunks
     cap = min(cap, ncb)
-
-    valid_t, lb, order = tile_bounds(ga, gb, n_a)
+    pro = run_prologue(ga, gb, n_a, cap,
+                       uses_select(prologue, cap, ga.points.dtype)
+                       and nta % 8 == 0)
+    valid_t, order = pro.valid_t, pro.order
 
     def refine(cand, **kw):
         return refine_knn(ga.points, gb.points, gb.perm, cand.contiguous(), k,
                           exclude_self=exclude_self, **kw)
 
-    def cert_counts(dk, tlb, tvalid):
-        ub = torch.where(tvalid, dk[:, :, k - 1], -torch.inf).amax(dim=1)
-        ub_eff = ub * (1 + 8 * eps) + 8 * eps
-        return (tlb <= ub_eff[:, None]).sum(dim=1, dtype=torch.int32)
+    def kth_ub(dk, tvalid):
+        return cert_ub(dk[:, :, k - 1], tvalid)
 
     if cap > 8:
         p1 = max(1, min(p1, cap - 1))
         d1, i1 = refine(order[:, :p1])
-        counts1 = cert_counts(d1, lb, valid_t)
+        counts1 = pro.counts(kth_ub(d1, valid_t))
         ncand2 = torch.clamp(counts1 - p1, 0, cap - p1).to(torch.int32)
         dk, ik = refine(order[:, p1:cap], ncand=ncand2, init=(d1, i1))
+        refined1 = p1 + ncand2  # each tile's refined prefix of ``order``
     else:
         dk, ik = refine(order[:, :cap])
 
     # ---- stage-1 certificate on the k-th distance
-    counts = cert_counts(dk, lb, valid_t)
+    ub_eff = kth_ub(dk, valid_t)
+    counts = pro.counts(ub_eff)
     ft = min(fallback_tiles, nta)
     cap2a = min(max(2 * cap, 128), ncb)
     cap2b = min(max(8 * cap, 512, ncb // 4), ncb)
     overflow = (counts > cap).sum() > ft
 
-    def tier(tiles, tcounts, lo, hi):
-        """Re-refine ``tiles`` (global ids) in place of their rows, seeded
-        with their current k-buffers: each executes only its chunks beyond
-        the already-refined lb-prefix of width ``lo``, up to
-        min(count, hi)."""
+    def tier(tiles, cand, ncand, tlb):
+        """Re-refine ``tiles`` (global ids) over ``cand``, gated per tile by
+        ``ncand`` and seeded with their current k-buffers, in place of
+        those rows; returns their recounts against ``tlb``."""
         nonlocal dk, ik
-        ncand = torch.where(
-            tcounts > lo, torch.clamp(tcounts, max=hi) - lo, 0
-        ).to(torch.int32)
-        fd, fi = refine(order[tiles, lo:hi], tiles=tiles.to(torch.int32),
-                        ncand=ncand, init=(dk[tiles].contiguous(),
-                                           ik[tiles].contiguous()))
+        fd, fi = refine(cand, tiles=tiles.to(torch.int32),
+                        ncand=ncand.to(torch.int32),
+                        init=(dk[tiles].contiguous(), ik[tiles].contiguous()))
         dk = dk.index_copy(0, tiles, fd)
         ik = ik.index_copy(0, tiles, fi)
-        return cert_counts(fd, lb[tiles], valid_t[tiles])
+        return count_under(tlb, kth_ub(fd, valid_t[tiles]))
 
-    tiers = []  # (tiles, lo, hi) of each tier that ran
+    tiers = []  # (tiles, lb rows, order rows, lo, hi) of each tier that ran
     if ft > 0 and cap2a > cap:
         otiles = stable_top(counts, ft)
-        counts2a = tier(otiles, counts[otiles], cap, cap2a)
-        tiers.append((otiles, cap, cap2a))
+        olb, oorder = tier_table(pro, gb, otiles)
+        oc = counts[otiles]
+        if pro.select:
+            # The true-lb prefix as wide as the tile's true-lb count at the
+            # stage-1 threshold, less the chunks stage 1 refined.
+            ncand_a = torch.where(
+                oc > cap, torch.clamp(count_under(olb, ub_eff[otiles]),
+                                      max=cap2a), 0)
+            seen = _mark(torch.zeros(olb.shape, dtype=torch.bool,
+                                     device=olb.device),
+                         order[otiles], refined1[otiles])
+            counts2a = tier(otiles, *_unseen(oorder[:, :cap2a], ncand_a, seen),
+                            olb)
+        else:
+            ncand_a = torch.where(oc > cap, torch.clamp(oc, max=cap2a) - cap,
+                                  0)
+            counts2a = tier(otiles, oorder[:, cap:cap2a], ncand_a, olb)
+        tiers.append((otiles, olb, oorder, cap, cap2a))
         ft2 = min(max(ft // 8, 16), ft)
         if cap2b > cap2a:
             need_b = torch.where(counts2a > cap2a, counts2a, 0)
             overflow = overflow | ((need_b > 0).sum() > ft2)
             bsel = stable_top(need_b, ft2)
-            btiles = otiles[bsel]
-            counts2b = tier(btiles, need_b[bsel], cap2a, cap2b)
-            tiers.append((btiles, cap2a, cap2b))
+            nb = need_b[bsel]
+            if pro.select:
+                seen_b = _mark(seen[bsel], oorder[bsel, :cap2a],
+                               ncand_a[bsel])
+                cand_b, ncand_b = _unseen(
+                    oorder[bsel, :cap2b],
+                    torch.where(nb > 0, torch.clamp(nb, max=cap2b), 0),
+                    seen_b)
+            else:
+                cand_b = oorder[bsel, cap2a:cap2b]
+                ncand_b = torch.where(nb > 0,
+                                      torch.clamp(nb, max=cap2b) - cap2a, 0)
+            counts2b = tier(otiles[bsel], cand_b, ncand_b, olb[bsel])
+            tiers.append((otiles[bsel], olb[bsel], oorder[bsel], cap2a,
+                          cap2b))
             overflow = overflow | (counts2b > cap2b).any()
         else:
             overflow = overflow | (counts2a > cap2a).any()
@@ -146,20 +205,33 @@ def knn_pruned_sorted(
     # qualifies), and the lb-ascending prefix of that width holds them all.
     rk = dk[:, :, k - 1].contiguous()
     rid = ik[:, :, k - 1].contiguous()
-    countsf = cert_counts(dk, lb, valid_t)
+    ubf_eff = kth_ub(dk, valid_t)
+    countsf = pro.counts(ubf_eff)
     mom = knn_moments(ga.points, gb.points, gb.perm,
                       order[:, :cap].contiguous(),
                       torch.clamp(countsf, max=cap).to(torch.int32), rk, rid)
-    for tiles, lo, hi in tiers:
-        # Extend the compacted tiles' sums past the prefix already summed.
+    for tiles, tlb, torder, lo, hi in tiers:
         cf = countsf[tiles]
-        ncm = torch.where(cf > lo, torch.clamp(cf, max=hi) - lo, 0)
-        part = knn_moments(ga.points, gb.points, gb.perm,
-                           order[tiles, lo:hi].contiguous(),
-                           ncm.to(torch.int32), rk[tiles].contiguous(),
-                           rid[tiles].contiguous(),
-                           tiles=tiles.to(torch.int32),
-                           init=mom[tiles].contiguous())
+        t32 = tiles.to(torch.int32)
+        rk_t, rid_t = rk[tiles].contiguous(), rid[tiles].contiguous()
+        if pro.select:
+            # From zero over the true-lb prefix, for the tiles stage 1 did
+            # not cover; the others keep their stage-1 sums.
+            take = cf > cap
+            ncm = torch.where(take, torch.clamp(count_under(
+                tlb, ubf_eff[tiles]), max=hi), 0)
+            part = knn_moments(ga.points, gb.points, gb.perm,
+                               torder[:, :hi].contiguous(),
+                               ncm.to(torch.int32), rk_t, rid_t, tiles=t32)
+            part = torch.where(take[:, None, None], part, mom[tiles])
+        else:
+            # Extend the compacted tiles' sums past the prefix already
+            # summed.
+            ncm = torch.where(cf > lo, torch.clamp(cf, max=hi) - lo, 0)
+            part = knn_moments(ga.points, gb.points, gb.perm,
+                               torder[:, lo:hi].contiguous(),
+                               ncm.to(torch.int32), rk_t, rid_t, tiles=t32,
+                               init=mom[tiles].contiguous())
         mom = mom.index_copy(0, tiles, part)
     return (dk.reshape(p, k), ik.reshape(p, k), overflow,
             mom.reshape(p, MOM_CH))
@@ -179,11 +251,14 @@ def knn_pruned(
     exclude_self: bool = False,
     cap: int = 64,
     fallback_tiles: int = 256,
+    prologue: typing.Optional[str] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """Exact pruned k-NN in ORIGINAL order with automatic escalation.
 
     Returns ``(idx int32 (Pa, k), dist_sq (Pa, k))`` ascending by distance.
+    ``prologue`` defaults to ``PCC_KNN_PROLOGUE``, read at this call.
     """
+    prologue = resolve_prologue(prologue, KNN_PROLOGUE_ENV)
     nta = a_points.shape[0] // CHUNK
     ncb = b_points.shape[0] // CHUNK
     key = (a_points.shape[0], b_points.shape[0], k, exclude_self)
@@ -195,7 +270,7 @@ def knn_pruned(
     while True:
         dk, ik, overflow = knn_pruned_sorted(
             ga, gb, n_a, k, exclude_self=exclude_self, cap=cap,
-            fallback_tiles=fallback_tiles)
+            fallback_tiles=fallback_tiles, prologue=prologue)
         # Exact iff the certificate passed or stage 1 refined every chunk.
         if not bool(overflow) or cap >= ncb:
             ladder_store(_ESCALATION_MEMO, key, (cap, fallback_tiles))

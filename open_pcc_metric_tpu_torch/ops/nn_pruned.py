@@ -18,21 +18,51 @@ Tiles that fail are re-refined in two wider tiers; only if those fail too
 does the call report ``overflow`` and the caller escalate — exactness is
 never silently lost. Every refine goes through ``refine.refine_nn`` (K1).
 
-The candidate order is a total order: a stable sort of each lb row, so
-equal lbs keep ascending chunk index — what XLA's ``top_k`` gives, and what
-the tiers' skip-the-refined-prefix step relies on (``torch.topk`` promises
-no order among ties). Tier tiles are picked by a stable descending sort the
-same way.
+Two prologues produce the stage-1 candidates and counts, chosen per call
+(``prologue``; the public entry points read ``PCC_NN_PROLOGUE``, where
+"select" selects and anything else means the default):
+
+  * "xla", the default (``tile_bounds``): the whole (nta, ncb) lb matrix,
+    a stable sort of each row and counts over it. The order is total:
+    equal lbs keep ascending chunk index — what XLA's ``top_k`` gives, and
+    what the tiers' skip-the-refined-prefix step relies on (``torch.topk``
+    promises no order among ties). Tier tiles are picked by a stable
+    descending sort the same way.
+  * "select" (float32 clouds, cap > 8): K2a (``select.select_bbox``) gives
+    each tile's ``cap`` candidates and K2b (``select.count_bbox``) every
+    stage-1 count, both in the kernels' rounded-key space and without the
+    matrix. The tiers work in true-lb space only: the bounds of their
+    compacted tiles, sorted, and a refine of the FULL prefix seeded with
+    the current rows (stage 1's rounded order shares no usable prefix with
+    it). Results equal the default's bit for bit; tier choice and
+    ``overflow`` follow the JAX package's select mode.
 """
 from __future__ import annotations
 
+import os
 import typing
 
 import torch
 
 from .grid import CHUNK, ChunkGrid, bbox_lower_bounds, build_grid
 from .refine import refine_nn
+from .select import count_bbox, select_bbox
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
+
+PROLOGUES = ("xla", "select")
+NN_PROLOGUE_ENV = "PCC_NN_PROLOGUE"
+KNN_PROLOGUE_ENV = "PCC_KNN_PROLOGUE"
+
+
+def resolve_prologue(prologue: typing.Optional[str], env: str) -> str:
+    """The prologue a call runs: ``prologue`` when given, else read from
+    the environment variable ``env`` at this call ("select" selects, any
+    other value or none means "xla", as in the JAX package)."""
+    if prologue is None:
+        return "select" if os.environ.get(env, "xla") == "select" else "xla"
+    if prologue not in PROLOGUES:
+        raise ValueError(f"unknown prologue {prologue!r}; one of {PROLOGUES}")
+    return prologue
 
 
 def stable_top(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -41,10 +71,15 @@ def stable_top(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, descending=True, stable=True).indices[:k]
 
 
-def tile_bounds(ga: ChunkGrid, gb: ChunkGrid, n_a: int):
-    """(valid_t, lb, order): the (nta, 256) validity mask of the query rows,
-    the (nta, ncb) bbox lower bounds over VALID query rows, and each row's
-    chunks in ascending-lb order (stable, int32)."""
+def lb_order(lb: torch.Tensor) -> torch.Tensor:
+    """Each row's columns in ascending-lb order (stable, int32)."""
+    return torch.sort(lb, dim=1, stable=True).indices.to(torch.int32)
+
+
+def tile_boxes(ga: ChunkGrid, n_a: int):
+    """(valid_t, a_lo, a_hi): the (nta, 256) validity mask of the query
+    rows and each tile's (nta, 3) bbox over its VALID rows (an empty tile
+    spans +max to -max)."""
     dtype = ga.points.dtype
     big = torch.finfo(dtype).max
     nta = ga.points.shape[0] // CHUNK
@@ -53,9 +88,75 @@ def tile_bounds(ga: ChunkGrid, gb: ChunkGrid, n_a: int):
                < n_a).reshape(nta, CHUNK)
     a_lo = torch.where(valid_t[:, :, None], a_tiles, big).amin(dim=1)
     a_hi = torch.where(valid_t[:, :, None], a_tiles, -big).amax(dim=1)
+    return valid_t, a_lo, a_hi
+
+
+def tile_bounds(ga: ChunkGrid, gb: ChunkGrid, n_a: int):
+    """(valid_t, lb, order): the (nta, 256) validity mask of the query rows,
+    the (nta, ncb) bbox lower bounds over VALID query rows, and each row's
+    chunks in ascending-lb order (stable, int32). The default prologue."""
+    valid_t, a_lo, a_hi = tile_boxes(ga, n_a)
     lb = bbox_lower_bounds(a_lo, a_hi, gb.bbox_lo, gb.bbox_hi)
-    order = torch.sort(lb, dim=1, stable=True).indices.to(torch.int32)
-    return valid_t, lb, order
+    return valid_t, lb, lb_order(lb)
+
+
+def cert_ub(d: torch.Tensor, valid_t: torch.Tensor) -> torch.Tensor:
+    """Each tile's padded certificate threshold: the largest ``d`` over its
+    valid rows, widened by 8 eps relative and absolute."""
+    eps = torch.finfo(d.dtype).eps
+    ub = torch.where(valid_t, d, -torch.inf).amax(dim=1)
+    return ub * (1 + 8 * eps) + 8 * eps
+
+
+def count_under(lb: torch.Tensor, ub_eff: torch.Tensor) -> torch.Tensor:
+    """(rows,) int32 counts of the entries of each lb row <= its ub_eff."""
+    return (lb <= ub_eff[:, None]).sum(dim=1, dtype=torch.int32)
+
+
+class Prologue(typing.NamedTuple):
+    """Stage-1 inputs of a pruned search, from either prologue."""
+    valid_t: torch.Tensor  # (nta, 256) valid query rows
+    order: torch.Tensor  # (nta, >= cap) int32 candidates, lowest lb first
+    counts: typing.Callable[[torch.Tensor], torch.Tensor]  # ub_eff -> (nta,)
+    lb: typing.Optional[torch.Tensor]  # (nta, ncb) true lb; None in select
+    boxes: typing.Optional[tuple]  # select: the (nta, 3) a_lo and a_hi
+
+    @property
+    def select(self) -> bool:
+        return self.lb is None
+
+
+def run_prologue(ga: ChunkGrid, gb: ChunkGrid, n_a: int, cap: int,
+                 select: bool) -> Prologue:
+    """The default prologue (``tile_bounds``, counts over the lb matrix)
+    or, with ``select``, K2a's ``cap`` candidates and K2b's counts."""
+    if not select:
+        valid_t, lb, order = tile_bounds(ga, gb, n_a)
+        return Prologue(valid_t, order,
+                        lambda ub_eff: count_under(lb, ub_eff), lb, None)
+    valid_t, a_lo, a_hi = tile_boxes(ga, n_a)
+    order, _ = select_bbox(a_lo, a_hi, gb.bbox_lo, gb.bbox_hi, cap)
+    return Prologue(valid_t, order, lambda ub_eff: count_bbox(
+        a_lo, a_hi, gb.bbox_lo, gb.bbox_hi, ub_eff), None, (a_lo, a_hi))
+
+
+def uses_select(prologue: str, cap: int, dtype: torch.dtype) -> bool:
+    """Whether a search runs the select prologue: asked for, on the counted
+    schedule (cap > 8) of a float32 cloud, as in the JAX package."""
+    if prologue not in PROLOGUES:
+        raise ValueError(f"unknown prologue {prologue!r}; one of {PROLOGUES}")
+    return prologue == "select" and cap > 8 and dtype == torch.float32
+
+
+def tier_table(pro: Prologue, gb: ChunkGrid, tiles: torch.Tensor):
+    """(lb rows, lb-ascending order rows) of the compacted ``tiles``: rows
+    of the matrix by default, their true bounds recomputed and sorted in
+    select mode."""
+    if not pro.select:
+        return pro.lb[tiles], pro.order[tiles]
+    a_lo, a_hi = pro.boxes
+    olb = bbox_lower_bounds(a_lo[tiles], a_hi[tiles], gb.bbox_lo, gb.bbox_hi)
+    return olb, lb_order(olb)
 
 
 def nn_pruned_sorted(
@@ -66,6 +167,7 @@ def nn_pruned_sorted(
     cap: int = 32,
     fallback_tiles: int = 128,
     p1: int = 8,
+    prologue: str = "xla",
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """1-NN in Morton-sorted query order.
 
@@ -80,61 +182,67 @@ def nn_pruned_sorted(
     (gated per tile), then tier A (the top ``fallback_tiles`` tiles by
     count, widened to cap2a) and tier B (the worst of those, widened to
     cap2b), both seeded and gated. With cap <= 8 stage 1 is one refine of
-    all ``cap`` chunks.
+    all ``cap`` chunks. ``prologue`` ("xla" or "select") picks where the
+    stage-1 candidates and counts come from (module docstring).
     """
-    dtype = ga.points.dtype
-    eps = torch.finfo(dtype).eps
     nta = ga.points.shape[0] // CHUNK
     ncb = gb.n_chunks
     cap = min(cap, ncb)
-
-    valid_t, lb, order = tile_bounds(ga, gb, n_a)
+    pro = run_prologue(ga, gb, n_a, cap,
+                       uses_select(prologue, cap, ga.points.dtype))
+    valid_t, order = pro.valid_t, pro.order
 
     def refine(cand, **kw):
         return refine_nn(ga.points, gb.points, gb.perm, cand.contiguous(),
                          exclude_self=exclude_self, **kw)
 
-    def cert_counts(d, tlb, tvalid):
-        ub = torch.where(tvalid, d, -torch.inf).amax(dim=1)
-        ub_eff = ub * (1 + 8 * eps) + 8 * eps
-        return (tlb <= ub_eff[:, None]).sum(dim=1, dtype=torch.int32)
-
     if cap > 8:
         p1 = max(1, min(p1, cap - 1))
         d1, i1 = refine(order[:, :p1])
-        counts1 = cert_counts(d1, lb, valid_t)
+        counts1 = pro.counts(cert_ub(d1, valid_t))
         ncand2 = torch.clamp(counts1 - p1, 0, cap - p1).to(torch.int32)
         dmin, gidx = refine(order[:, p1:cap], ncand=ncand2, init=(d1, i1))
     else:
         dmin, gidx = refine(order[:, :cap])
 
     # ---- stage-1 exactness certificate
-    counts = cert_counts(dmin, lb, valid_t)
+    ub_eff = cert_ub(dmin, valid_t)
+    counts = pro.counts(ub_eff)
     ft = min(fallback_tiles, nta)
     cap2a = min(max(4 * cap, 128), ncb)
     cap2b = min(max(16 * cap, 512, ncb // 4), ncb)
     overflow = (counts > cap).sum() > ft
 
-    def tier(tiles, tcounts, lo, hi):
-        """Re-refine ``tiles`` (global ids) in place of their rows, seeded
-        with their current rows: each executes only its chunks beyond the
-        already-refined lb-prefix of width ``lo``, up to min(count, hi)."""
+    def tier(tiles, cand, ncand, tlb):
+        """Re-refine ``tiles`` (global ids) over ``cand``, gated per tile by
+        ``ncand`` and seeded with their current rows, in place of those
+        rows; returns their recounts against ``tlb``."""
         nonlocal dmin, gidx
-        ncand = torch.where(
-            tcounts > lo, torch.clamp(tcounts, max=hi) - lo, 0
-        ).to(torch.int32)
-        tiles32 = tiles.to(torch.int32)
-        fd, fi = refine(order[tiles, lo:hi], tiles=tiles32, ncand=ncand,
+        fd, fi = refine(cand, tiles=tiles.to(torch.int32),
+                        ncand=ncand.to(torch.int32),
                         init=(dmin[tiles].contiguous(),
                               gidx[tiles].contiguous()))
         dmin = dmin.index_copy(0, tiles, fd)
         gidx = gidx.index_copy(0, tiles, fi)
-        return cert_counts(fd, lb[tiles], valid_t[tiles])
+        return count_under(tlb, cert_ub(fd, valid_t[tiles]))
 
     if ft > 0 and cap2a > cap:
         # Tier A: every over-cap tile lands here when n_over <= ft.
         otiles = stable_top(counts, ft)
-        counts2a = tier(otiles, counts[otiles], cap, cap2a)
+        olb, oorder = tier_table(pro, gb, otiles)
+        oc = counts[otiles]
+        if pro.select:
+            # The full true-lb prefix, as wide as the tile's true-lb count
+            # at the stage-1 threshold (its recount can only shrink).
+            ncand_a = torch.where(
+                oc > cap, torch.clamp(count_under(olb, ub_eff[otiles]),
+                                      max=cap2a), 0)
+            counts2a = tier(otiles, oorder[:, :cap2a], ncand_a, olb)
+        else:
+            # Only the chunks beyond the refined prefix of width cap.
+            ncand_a = torch.where(oc > cap, torch.clamp(oc, max=cap2a) - cap,
+                                  0)
+            counts2a = tier(otiles, oorder[:, cap:cap2a], ncand_a, olb)
         ft2 = min(max(ft // 8, 16), ft)
         if cap2b > cap2a:
             # Tier B: the few tiles whose qualifying set exceeds tier A's
@@ -143,7 +251,11 @@ def nn_pruned_sorted(
             need_b = torch.where(counts2a > cap2a, counts2a, 0)
             overflow = overflow | ((need_b > 0).sum() > ft2)
             bsel = stable_top(need_b, ft2)
-            counts2b = tier(otiles[bsel], need_b[bsel], cap2a, cap2b)
+            nb = need_b[bsel]
+            lo = 0 if pro.select else cap2a
+            ncand_b = torch.where(nb > 0, torch.clamp(nb, max=cap2b) - lo, 0)
+            counts2b = tier(otiles[bsel], oorder[bsel, lo:cap2b], ncand_b,
+                            olb[bsel])
             overflow = overflow | (counts2b > cap2b).any()
         else:
             overflow = overflow | (counts2a > cap2a).any()
@@ -173,19 +285,22 @@ def nn_pruned_with_grids(
     exclude_self: bool = False,
     cap: int = 32,
     fallback_tiles: int = 128,
+    prologue: typing.Optional[str] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """Pruned 1-NN over prebuilt grids, ORIGINAL order, with escalation.
 
     Returns ``(idx int32 (Pa,), dist_sq (Pa,))``. Building the grids once
     per cloud (``Cloud.get_grid``) shares the Morton sort across every NN
-    pass of an evaluation.
+    pass of an evaluation. ``prologue`` defaults to ``PCC_NN_PROLOGUE``,
+    read at this call.
     """
     nta = ga.points.shape[0] // CHUNK
     ncb = gb.n_chunks
+    prologue = resolve_prologue(prologue, NN_PROLOGUE_ENV)
     while True:
         d_s, i_s, overflow = nn_pruned_sorted(
             ga, gb, n_a, exclude_self=exclude_self, cap=cap,
-            fallback_tiles=fallback_tiles)
+            fallback_tiles=fallback_tiles, prologue=prologue)
         # Exact iff the certificate passed, or stage 1 refined every chunk.
         if not bool(overflow) or cap >= ncb:
             d, idx = unsort_nn_result(ga, gb, d_s, i_s)
@@ -206,6 +321,7 @@ def nn_pruned(
     exclude_self: bool = False,
     cap: int = 32,
     fallback_tiles: int = 128,
+    prologue: typing.Optional[str] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """Exact pruned 1-NN in ORIGINAL row order with automatic escalation.
 
@@ -213,8 +329,10 @@ def nn_pruned(
     the search runs over ``a`` itself (``b_points`` is not read). An
     overflowing rung escalates through ``next_rung`` until the certificate
     passes or stage 1 covers every search chunk; the rung that worked is
-    remembered per problem shape.
+    remembered per problem shape. ``prologue`` defaults to
+    ``PCC_NN_PROLOGUE``, read at this call.
     """
+    prologue = resolve_prologue(prologue, NN_PROLOGUE_ENV)
     nta = a_points.shape[0] // CHUNK
     ncb = b_points.shape[0] // CHUNK
     key = (a_points.shape[0], b_points.shape[0], exclude_self)
@@ -225,7 +343,7 @@ def nn_pruned(
     while True:
         d_s, i_s, overflow = nn_pruned_sorted(
             ga, gb, int(n_a), exclude_self=exclude_self, cap=cap,
-            fallback_tiles=fallback_tiles)
+            fallback_tiles=fallback_tiles, prologue=prologue)
         if not bool(overflow) or cap >= ncb:
             ladder_store(_ESCALATION_MEMO, key, (cap, fallback_tiles))
             d, idx = unsort_nn_result(ga, gb, d_s, i_s)

@@ -126,8 +126,10 @@ def estimate_normals(
     return normals_from_neighbors(points, neighbor_idx, k, n_valid=n_valid)
 
 
-def estimation_core(g, n: int, k: int, cap: int, fallback_tiles: int):
-    """Estimation over a prebuilt grid, one certificate rung.
+def estimation_core(g, n: int, k: int, cap: int, fallback_tiles: int,
+                    prologue: str = "xla"):
+    """Estimation over a prebuilt grid, one certificate rung, with the
+    pruned k-NN's ``prologue``.
 
     Normals come straight from the in-kernel moment sums; only the (P, 3)
     normals are unsorted. The k-NN includes each point itself, so slot 1 is
@@ -141,7 +143,8 @@ def estimation_core(g, n: int, k: int, cap: int, fallback_tiles: int):
     from .nn_pruned import unsort_rows
 
     dk, _, overflow, mom = knn_pruned_sorted(
-        g, g, n, k, cap=cap, fallback_tiles=fallback_tiles, with_moments=True)
+        g, g, n, k, cap=cap, fallback_tiles=fallback_tiles, with_moments=True,
+        prologue=prologue)
     valid = torch.arange(g.perm.shape[0], device=dk.device) < n
     d1 = torch.sqrt(torch.clamp(dk[:, min(k - 1, 1)], min=0.0))
     mn = torch.where(valid, d1, torch.inf).amin()
@@ -156,7 +159,9 @@ _LADDER_MEMO: dict = {}
 
 
 def estimate_normals_cloud(cloud, k: int = DEFAULT_KNN, cap: int = 64,
-                           fallback_tiles: int = 256) -> torch.Tensor:
+                           fallback_tiles: int = 256,
+                           prologue: typing.Optional[str] = None
+                           ) -> torch.Tensor:
     """Estimate normals reusing the Cloud's cached Morton grid.
 
     ``(cap, fallback_tiles)`` is the base rung of the certificate ladder.
@@ -164,19 +169,24 @@ def estimate_normals_cloud(cloud, k: int = DEFAULT_KNN, cap: int = 64,
     valid points, whose moments would count sentinel rows into the k-set
     where the brute path masks them (FLANN's "fewer neighbours"). The
     boundary stats that fall out of the pruned pass are cached on the
-    cloud when none are set.
+    cloud when none are set. ``prologue`` is the pruned k-NN's, by default
+    ``PCC_KNN_PROLOGUE`` read at this call.
     """
     p = cloud.padded_size
     n = int(cloud.n)
     if p < _PRUNE_THRESHOLD or n < k:
         return estimate_normals(cloud.points, k=k, n_valid=n)
+    from .nn_pruned import KNN_PROLOGUE_ENV, resolve_prologue
+
+    prologue = resolve_prologue(prologue, KNN_PROLOGUE_ENV)
     g = cloud.get_grid()
     ncb = g.n_chunks
     memo_key = (p, k)
     cap, fallback_tiles = ladder_lookup(_LADDER_MEMO, memo_key,
                                         (cap, fallback_tiles))
     while True:
-        nrm, mn, mx, overflow = estimation_core(g, n, k, cap, fallback_tiles)
+        nrm, mn, mx, overflow = estimation_core(g, n, k, cap, fallback_tiles,
+                                                prologue)
         # Exact iff certified or stage 1 refined every chunk.
         if not bool(overflow) or cap >= ncb:
             ladder_store(_LADDER_MEMO, memo_key, (cap, fallback_tiles))

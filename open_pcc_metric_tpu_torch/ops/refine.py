@@ -309,6 +309,8 @@ _ENTRIES = {
     "refine_knn": ("pcc_refine_knn", 10, 4),
     "knn_moments": ("pcc_knn_moments", 10, 2),
     "nn_brute": ("pcc_nn_brute", 6, 5),  # K5, wrapped by ops/nn.nn_argmin
+    "select_bbox": ("pcc_select_bbox", 6, 4),  # K2a, ops/select.select_bbox
+    "count_bbox": ("pcc_count_bbox", 6, 3),  # K2b, ops/select.count_bbox
 }
 
 
