@@ -33,14 +33,29 @@ Hausdorff):
     stage split (prologue, K1, rest) of each 2M sweep. Before them, K2a and
     K2b against their plain versions at the prologue's shapes, and the
     prologue A/B: ``tile_bounds`` (lb, stable sort, two counts) against
-    K2a plus two K2b counts, per sweep at 800k and 2M.
+    K2a plus two K2b counts, per sweep at 800k and 2M;
+  * the refine schedules: ``PCC_REFINE_IMPL=adaptive`` (K7, on these
+    integer clouds) on the 800k pair in turns (adaptive, default, default,
+    adaptive) and on the 2M pair (adaptive, default), with each sweep's P3
+    tail; ``PCC_PAYLOAD_KERNEL=1`` (K6 on the cross sweeps) on the 800k pair
+    in turns; every table and sweep bit-identical to the default's, and a
+    float pair under adaptive, which must take the default schedule.
+    Before them, K7 (P1, P2, P3, self probe), K1's expanded mode and K6
+    (stage 1 a->b and b->a) against their plain versions at those shapes.
+    The ladder memo's key names the schedule, so no turn starts from a rung
+    another schedule certified.
 
 It prints:
 
   * the card's name and power limit (nvidia-smi),
   * each kernel's build time and ptxas resource lines,
-  * one line per kernel phase, one timing line per path, with its checks,
+  * one line per kernel phase, one timing line per path, with its checks
+    (K7 and K1-expanded phases compare valid rows: their fused
+    multiply-adds round sentinel rows otherwise),
   * one ``prologue A/B`` line per pair size and a ``2M stage split`` line,
+  * the ``adaptive path``, ``payload path`` and ``float pair under
+    adaptive`` lines, and a ``schedule split`` line per pair size (each
+    sweep's time under each schedule with its kernels replayed alone),
   * a ``{"kernels": [...]}`` JSON line (launches on the paths, error and
     times against the plain version, the bound from this run's shapes and
     data, and for K5 one PyTorch library call's time), and last
@@ -80,14 +95,21 @@ KERNELS = {
     "nn_brute": "open_pcc_metric_tpu/ops/nn_pallas.py:40",
     "select_bbox": "open_pcc_metric_tpu/ops/select_pallas.py:117",
     "count_bbox": "open_pcc_metric_tpu/ops/select_pallas.py:133",
+    "adaptive_refine": "open_pcc_metric_tpu/ops/refine_adaptive.py:76",
+    "refine_nn_payload": "open_pcc_metric_tpu/ops/refine_pallas.py:1156",
 }
 SELECT_KERNELS = ("select_bbox", "count_bbox")
 PROLOGUE_ENV = ("PCC_NN_PROLOGUE", "PCC_KNN_PROLOGUE")
+ADAPTIVE_ENV = {"PCC_REFINE_IMPL": "adaptive"}
+PAYLOAD_ENV = {"PCC_PAYLOAD_KERNEL": "1"}
+# The adaptive schedule's knobs at the base rung (nn_pruned_sorted's map).
+ADAPTIVE_CAP, ADAPTIVE_FT3 = max(64, CAP), max(64, FALLBACK // 4)
 # The card's published peaks (H100 SXM, NVIDIA's data sheet): float32
 # outside the tensor cores, and device memory. A kernel's bound is the
 # larger of its operations over the first and its bytes over the second.
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add and one compare per distance
+OPS_PER_PAIR_EXPANDED = 8  # K7, K1 expanded: 1 add, 3 FMA and one compare
 OPS_PER_MEMBER = 16  # K4: one count and 15 multiply/adds per k-NN member
 OPS_PER_BOUND = 17  # a box bound: 6 sub, 6 max, 3 mul, 2 add
 OPS_SELECT = OPS_PER_BOUND + 2  # K2a: mask and pack the key
@@ -245,6 +267,169 @@ def kernel_phases(a, b, float_cloud):
     records.append(check("float extension", gf, gb, order_f[:, P1:CAP],
                          ncand=ncand_f, init=(df, i_f))[2])
     return records
+
+
+def adaptive_phases(a, b):
+    """K7 against adaptive_refine_reference on the card, at the shapes the
+    adaptive a->b sweep of the 800k pair gives it at the base rung (cap
+    ADAPTIVE_CAP, ft3 ADAPTIVE_FT3, p1 P1): the P1 probe, the seeded gated
+    P2, the P3 tail at the tiles and counts the sweep reaches, and a self
+    probe with exclude_self. d and id must be bit-identical on valid rows
+    (the kernel fuses the multiply-adds the plain version rounds one by
+    one, which only sentinel rows can tell apart). The probe's cand also
+    goes through K1 and K1's expanded mode: equal on valid rows, times side
+    by side. Returns (K7 records, the K1-expanded record)."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import (
+        cert_ub, count_under, stable_top, tile_bounds)
+    from open_pcc_metric_tpu_torch.ops.refine import (
+        refine_nn, refine_nn_reference)
+    from open_pcc_metric_tpu_torch.ops.refine_adaptive import (
+        adaptive_refine, adaptive_refine_reference, pack_candidates,
+        pack_queries)
+
+    dev = a.points.device
+
+    def valid_rows(tids):
+        return (tids.long()[:, None] * 256
+                + torch.arange(256, device=dev)) < a.n
+
+    def same(name, got, want, valid):
+        if not all(_bit_equal(x[valid], y[valid]) for x, y in zip(got, want)):
+            bad = int(((got[0] != want[0]) | (got[1] != want[1]))[valid].sum())
+            raise AssertionError(f"{name}: {bad} valid rows differ")
+
+    def check(name, qhat, bhat, cand, ncand, tids, **kw):
+        args = (qhat, bhat, cand.contiguous(), ncand.to(torch.int32),
+                tids.to(torch.int32))
+        got = adaptive_refine(*args, **kw)
+        torch.cuda.synchronize()
+        want, plain_ms = _once_ms(lambda: adaptive_refine_reference(*args,
+                                                                    **kw))
+        same(f"K7 phase {name}", got, want, valid_rows(args[4]))
+        init = kw.get("init") or (None, None)
+        bound_ms, bound_by = _bound(
+            OPS_PER_PAIR_EXPANDED * _live_pairs(cand, args[3]),
+            [*args, *init], list(got))
+        rec = {
+            "phase": name, "rows": int(cand.shape[0]),
+            "slots": int(cand.shape[1]),
+            "live_slots": int(torch.clamp(args[3], 0, cand.shape[1]).sum()),
+            "compared": "valid rows", "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: adaptive_refine(*args, **kw), 20),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        }
+        return got, rec
+
+    ga, gb = a.get_grid(), b.get_grid()
+    valid_t, lb, order = tile_bounds(ga, gb, a.n)
+    nta = order.shape[0]
+    cap = min(ADAPTIVE_CAP, gb.n_chunks)
+    qhat = pack_queries(ga.points)
+    bhat = pack_candidates(gb.points, gb.perm)
+    tids = torch.arange(nta, dtype=torch.int32, device=dev)
+    full = torch.full((nta,), P1, dtype=torch.int32, device=dev)
+    recs = []
+    (d1, i1), rec = check("P1 probe a->b", qhat, bhat, order[:, :P1], full,
+                          tids)
+    # The same cand through K1 (difference form) and K1's expanded mode.
+    args = (ga.points, gb.points, gb.perm, order[:, :P1].contiguous())
+    k1 = refine_nn(*args)
+    k1x = refine_nn(*args, expanded=True)
+    torch.cuda.synchronize()
+    k1x_want, k1x_plain_ms = _once_ms(
+        lambda: refine_nn_reference(*args, expanded=True))
+    same("K1 expanded probe a->b", k1x, k1x_want, valid_t)
+    same("K1 expanded vs K1", k1x, k1, valid_t)
+    same("K7 probe vs K1", (d1, i1), k1, valid_t)
+    rec["k1_ms"] = _time_ms(lambda: refine_nn(*args), 20)
+    rec["k1_expanded_ms"] = _time_ms(lambda: refine_nn(*args, expanded=True),
+                                     20)
+    print("kernel phase K7 " + json.dumps(rec), flush=True)
+    recs.append(rec)
+    bound_ms, bound_by = _bound(
+        OPS_PER_PAIR_EXPANDED * _live_pairs(args[3], None), args, list(k1x))
+    k1x_rec = {
+        "phase": "K1 expanded probe a->b", "tiles": nta, "slots": P1,
+        "compared": "valid rows (also equal to K1 and K7)", "max_abs_err": 0.0,
+        "ms": rec["k1_expanded_ms"], "plain_ms": k1x_plain_ms,
+        "k1_ms": rec["k1_ms"], "k7_ms": rec["ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+    }
+    print("kernel phase K1 expanded " + json.dumps(k1x_rec), flush=True)
+
+    count1 = count_under(lb, cert_ub(d1, valid_t))
+    ncand2 = torch.clamp(torch.clamp(count1, max=cap) - P1, 0, cap - P1)
+    (d2, i2), rec = check("P2 extension a->b (seeded, gated)", qhat, bhat,
+                          order[:, P1:cap], ncand2, tids, init=(d1, i1))
+    print("kernel phase K7 " + json.dumps(rec), flush=True)
+    recs.append(rec)
+    count2 = count_under(lb, cert_ub(d2, valid_t))
+    is_tail = count2 > cap
+    otiles = stable_top(torch.where(is_tail, count2, 0), min(ADAPTIVE_FT3,
+                                                              nta))
+    ncand3 = torch.where(is_tail[otiles], count2[otiles], 0)
+    _, rec = check("P3 tail a->b (full lb order)", qhat, bhat, order[otiles],
+                   ncand3, otiles)
+    rec["tail_tiles"] = int(is_tail.sum())
+    rec["tail_slots"] = sorted((int(x) for x in ncand3[ncand3 > 0]),
+                               reverse=True)
+    print("kernel phase K7 " + json.dumps(rec), flush=True)
+    recs.append(rec)
+    order_s = tile_bounds(ga, ga, a.n)[2]
+    _, rec = check("self probe a->a", qhat, pack_candidates(ga.points, ga.perm),
+                   order_s[:, :P1], full, tids, exclude_self=True)
+    print("kernel phase K7 " + json.dumps(rec), flush=True)
+    recs.append(rec)
+    return recs, k1x_rec
+
+
+def payload_phases(origin, reconst, dev):
+    """K6 against refine_nn_payload_reference on the card at the payload
+    schedule's stage 1 on the 800k pair (cap CAP, no gate, no seed): a->b
+    (3328 x 32) and b->a (1920 x 32), with the search cloud's points,
+    colours and normals as payload. d, id and payload must be
+    bit-identical on every row (K6 uses the difference form), and the
+    payload equal to a gather of the original-order rows at the id."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.fused import _pack_payload
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import tile_bounds
+    from open_pcc_metric_tpu_torch.ops.refine import (
+        refine_nn_payload, refine_nn_payload_reference)
+
+    a, b = _pair_clouds(origin, reconst, dev)
+    recs = []
+    for name, q, s in (("a->b", a, b), ("b->a", b, a)):
+        gq, gs = q.get_grid(), s.get_grid()
+        order = tile_bounds(gq, gs, q.n)[2]
+        cand = order[:, :min(CAP, gs.n_chunks)].contiguous()
+        pay_o = _pack_payload(s.points, s.colors, s.normals)
+        args = (gq.points, gs.points, gs.perm, pay_o[gs.perm.long()], cand)
+        got = refine_nn_payload(*args)
+        torch.cuda.synchronize()
+        want, plain_ms = _once_ms(lambda: refine_nn_payload_reference(*args))
+        if not all(_bit_equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"K6 phase {name}: differs from "
+                                 "refine_nn_payload_reference")
+        if not _bit_equal(got[2], pay_o[got[1].reshape(-1).long()]):
+            raise AssertionError(f"K6 phase {name}: the payload is not the "
+                                 "gather at the id")
+        bound_ms, bound_by = _bound(OPS_PER_PAIR * _live_pairs(cand, None),
+                                    args, list(got))
+        rec = {
+            "phase": f"stage 1 {name}", "tiles": int(cand.shape[0]),
+            "slots": int(cand.shape[1]), "compared": "every row",
+            "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: refine_nn_payload(*args), 20),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        }
+        print("kernel phase K6 " + json.dumps(rec), flush=True)
+        recs.append(rec)
+    return recs
 
 
 def knn_phases(a, float_cloud):
@@ -480,30 +665,38 @@ def _guarded(modules_names):
 
 
 def _plain_names():
-    from open_pcc_metric_tpu_torch.ops import nn, refine, select
+    from open_pcc_metric_tpu_torch.ops import nn, refine, refine_adaptive, select
 
     return [(refine, "refine_nn_reference"), (refine, "refine_knn_reference"),
             (refine, "knn_moments_reference"), (nn, "nn_chunked"),
             (select, "select_bbox_reference"),
-            (select, "count_bbox_reference")]
+            (select, "count_bbox_reference"),
+            (refine_adaptive, "adaptive_refine_reference"),
+            (refine, "refine_nn_payload_reference")]
 
 
 def _wrappers():
     """Each kernel's wrapper, which counts its launches."""
-    from open_pcc_metric_tpu_torch.ops import nn, refine, select
+    from open_pcc_metric_tpu_torch.ops import nn, refine, refine_adaptive, select
 
     return {"refine_nn": refine.refine_nn, "refine_knn": refine.refine_knn,
             "knn_moments": refine.knn_moments, "nn_brute": nn.nn_argmin,
             "select_bbox": select.select_bbox,
-            "count_bbox": select.count_bbox}
+            "count_bbox": select.count_bbox,
+            "adaptive_refine": refine_adaptive.adaptive_refine,
+            "refine_nn_payload": refine.refine_nn_payload}
 
 
 @contextlib.contextmanager
-def _prologue_env(prologue):
-    """PCC_NN_PROLOGUE and PCC_KNN_PROLOGUE set to ``prologue`` inside."""
-    saved = {v: os.environ.get(v) for v in PROLOGUE_ENV}
-    os.environ.update({v: prologue for v in PROLOGUE_ENV})
+def _env(values):
+    """The environment variables ``values`` set inside (None: unset)."""
+    saved = {v: os.environ.get(v) for v in values}
     try:
+        for v, value in values.items():
+            if value is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = value
         yield
     finally:
         for v, old in saved.items():
@@ -511,6 +704,11 @@ def _prologue_env(prologue):
                 os.environ.pop(v, None)
             else:
                 os.environ[v] = old
+
+
+def _prologue_env(prologue):
+    """PCC_NN_PROLOGUE and PCC_KNN_PROLOGUE set to ``prologue`` inside."""
+    return _env({v: prologue for v in PROLOGUE_ENV})
 
 
 def _check_select_launches(label, prologue, launches):
@@ -654,27 +852,30 @@ def oracle_checks(a, b, origin, reconst, result, search, label):
     return sweeps, delta
 
 
-def _settled_rung(q, s):
-    """The rung the fused ladder settled on for the pair that holds the
-    clouds ``q`` and ``s`` (the base rung if it has none or several)."""
+def _settled_rung(q, s, refine_impl="default", payload=False):
+    """The rung the fused ladder settled on under one schedule (the memo's
+    key names it) for the pair that holds the clouds ``q`` and ``s`` (the
+    base rung if it has none or several)."""
     from open_pcc_metric_tpu_torch.ops.fused import _LADDER_MEMO
 
     sizes = {q.padded_size, s.padded_size}
     rungs = {rung for key, (rung, _) in _LADDER_MEMO.items()
-             if sizes <= set(key[:2])}
+             if sizes <= set(key[:2]) and key[-2:] == (refine_impl, payload)}
     return rungs.pop() if len(rungs) == 1 else (CAP, FALLBACK)
 
 
-def pruned_search(q, s, exclude_self, prologue="xla"):
-    """The main path's pruned sweep at the rung its ladder settled on."""
+def pruned_search(q, s, exclude_self, prologue="xla", refine_impl="default"):
+    """The main path's pruned sweep at the rung its ladder settled on, under
+    ``prologue`` and ``refine_impl`` (integer clouds: mxu_ok)."""
     from open_pcc_metric_tpu_torch.ops.nn_pruned import (
         nn_pruned_sorted, unsort_nn_result)
 
-    cap, ft = _settled_rung(q, s)
+    cap, ft = _settled_rung(q, s, refine_impl)
     gq, gs = q.get_grid(), s.get_grid()
     d_s, i_s, ov = nn_pruned_sorted(gq, gs, q.n, exclude_self=exclude_self,
                                     cap=cap, fallback_tiles=ft,
-                                    prologue=prologue)
+                                    prologue=prologue, refine_impl=refine_impl,
+                                    mxu_ok=q.mxu_exact() and s.mxu_exact())
     if bool(ov):
         raise AssertionError(f"a sweep overflowed at rung {(cap, ft)}")
     d, i = unsort_nn_result(gq, gs, d_s, i_s)
@@ -1042,46 +1243,199 @@ def sweeps_identical(a, b, label, oracle=None):
     return off
 
 
-def prologue_path(label, make, evaluate, runs, smi, kernel="refine_nn"):
-    """``evaluate`` on clouds from ``make`` in turns (select, default,
-    default, select), each turn one warm-up and ``runs`` timed calls
-    (``_timed_runs``) under PCC_NN_PROLOGUE and PCC_KNN_PROLOGUE. Every
-    table must equal the first bit for bit; K2a/K2b launch under select
-    only, ``kernel`` under both. Returns (last clouds, select launches of
-    the first turn, the record to print, the first table)."""
-    turns = {"select": [], "xla": []}
-    launches_sel = None
+def _turns(label, order, envs, make, evaluate, runs, check):
+    """``evaluate`` on clouds from ``make`` in turns: one per mode of
+    ``order``, each one warm-up and ``runs`` timed calls (``_timed_runs``)
+    with the environment ``envs[mode]``, then ``check(mode, launches)``.
+    Every table must equal the first bit for bit. Returns (last clouds,
+    {mode: launches of its first turn}, {mode: [timings]}, the first
+    table)."""
+    turns = {mode: [] for mode in order}
+    launches_of = {}
     first = None
-    for prologue in ("select", "xla", "xla", "select"):
-        with _prologue_env(prologue):
+    for mode in order:
+        with _env(envs[mode]):
             clouds, result, first_s, times, launches = _timed_runs(
                 make, evaluate, runs)
-        _check_select_launches(label, prologue, launches)
-        if launches[kernel] <= 0:
-            raise AssertionError(f"{label} launched {kernel} no time")
+        check(mode, launches)
         if first is None:
             first = result
         elif any(not np.array_equal(np.asarray(result[k]),
                                     np.asarray(first[k])) for k in first):
-            raise AssertionError(f"{label}: the {prologue} table differs")
-        if prologue == "select" and launches_sel is None:
-            launches_sel = launches
+            raise AssertionError(f"{label}: the {mode} table differs")
+        launches_of.setdefault(mode, launches)
         n = clouds[0].n + clouds[1].n
         med = statistics.median(times)
-        turns[prologue].append({"first_call_s": first_s, "median_s": med,
-                                "mpts_per_s": n / med / 1e6})
-    rec = {"n_points": n, "runs": runs, "turns": turns,
-           "table_equal": True,
+        turns[mode].append({"first_call_s": first_s, "median_s": med,
+                            "mpts_per_s": n / med / 1e6})
+    return clouds, launches_of, turns, first
+
+
+def prologue_path(label, make, evaluate, runs, smi, kernel="refine_nn"):
+    """``_turns`` (select, default, default, select) under PCC_NN_PROLOGUE
+    and PCC_KNN_PROLOGUE: K2a/K2b launch under select only, ``kernel``
+    under both. Returns (last clouds, select launches of the first turn,
+    the record to print, the first table)."""
+    def check(prologue, launches):
+        _check_select_launches(label, prologue, launches)
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{label} launched {kernel} no time")
+
+    envs = {p: {v: p for v in PROLOGUE_ENV} for p in ("select", "xla")}
+    clouds, launches_of, turns, first = _turns(
+        label, ("select", "xla", "xla", "select"), envs, make, evaluate,
+        runs, check)
+    launches_sel = launches_of["select"]
+    rec = {"n_points": clouds[0].n + clouds[1].n, "runs": runs,
+           "turns": turns, "table_equal": True,
            "launches_select": {k: v for k, v in launches_sel.items() if v},
            "card": smi}
     return clouds, launches_sel, rec, first
+
+
+def schedule_path(label, env, kernel, make, evaluate, runs, smi,
+                  order=("on", "off", "off", "on"), check_on=None):
+    """``_turns`` with ``env`` set ("on") and its variables unset ("off"):
+    ``kernel`` launches in every "on" turn and in no "off" turn, and
+    ``check_on(launches)`` holds for the "on" turns. Returns (last clouds,
+    "on" launches of the first turn, the record to print, the first
+    table)."""
+    def check(mode, launches):
+        if mode == "on" and launches[kernel] <= 0:
+            raise AssertionError(f"{label} launched {kernel} no time")
+        if mode == "off" and launches[kernel] != 0:
+            raise AssertionError(f"{label} launched {kernel} with the "
+                                 "knob unset")
+        if mode == "on" and check_on is not None:
+            check_on(launches)
+
+    envs = {"on": env, "off": {v: None for v in env}}
+    clouds, launches_of, turns, first = _turns(
+        label, order, envs, make, evaluate, runs, check)
+    on = launches_of["on"]
+    rec = {"n_points": clouds[0].n + clouds[1].n, "runs": runs, "env": env,
+           "turns": turns, "table_equal": True,
+           "launches_on": {k: v for k, v in on.items() if v},
+           "launches_off": {k: v for k, v in launches_of["off"].items() if v},
+           "card": smi}
+    return clouds, on, rec, first
+
+
+def schedule_sweeps(a, b, label, refine_impl, oracle=None):
+    """Each of the three sweeps under ``refine_impl`` (at the rung its
+    ladder settled on) against the default schedule's, bit for bit on the
+    valid rows, and (given ``oracle`` sweeps) 0 rows off them. Records the
+    adaptive schedule's P3 tail of each sweep: the rows it ran and their
+    slot counts. Returns {sweep: record}."""
+    from open_pcc_metric_tpu_torch.ops import nn_pruned as nn_mod
+
+    out = {}
+    real = nn_mod.adaptive_refine
+    for name, q, s, ex in _sweeps(a, b):
+        calls = []
+
+        def spy(*args, **kw):
+            calls.append(args[3])  # ncand
+            return real(*args, **kw)
+
+        i0, d0 = pruned_search(q, s, ex)
+        nn_mod.adaptive_refine = spy
+        try:
+            i1, d1 = pruned_search(q, s, ex, refine_impl=refine_impl)
+        finally:
+            nn_mod.adaptive_refine = real
+        if not (_bit_equal(i0[: q.n], i1[: q.n])
+                and _bit_equal(d0[: q.n], d1[: q.n])):
+            raise AssertionError(f"{label} sweep {name}: {refine_impl} "
+                                 "differs from the default schedule")
+        rec = {"k7_launches": len(calls)}
+        if len(calls) == 3:
+            tail = calls[2]
+            rec["p3_tiles"] = int((tail > 0).sum())
+            rec["p3_slots"] = sorted((int(x) for x in tail[tail > 0]),
+                                     reverse=True)
+        if oracle is not None:
+            oi, od = oracle[name]
+            rec["rows_off_oracle"] = int(np.sum(
+                (oi != i1[: q.n].cpu().numpy())
+                | (od != d1[: q.n].double().cpu().numpy())))
+            if rec["rows_off_oracle"]:
+                raise AssertionError(f"{label} sweep {name} under "
+                                     f"{refine_impl}: rows off the oracle")
+        out[name] = rec
+    return out
+
+
+def payload_sweeps(a, b, label, oracle):
+    """The two cross sweeps of the payload schedule (at the rung its ladder
+    settled on) against the default schedule's, bit for bit on the valid
+    rows, 0 rows off the ``oracle`` sweeps, and the payload equal to the
+    gather at the id. Returns {sweep: rows off the oracle}."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.fused import _pack_payload
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import (
+        nn_pruned_sorted_payload, unsort_nn_result, unsort_rows)
+
+    off = {}
+    for name, q, s, _ in _sweeps(a, b)[:2]:
+        cap, ft = _settled_rung(q, s, "default", True)
+        gq, gs = q.get_grid(), s.get_grid()
+        pay_o = _pack_payload(s.points, s.colors, s.normals)
+        d_s, i_s, p_s, ov = nn_pruned_sorted_payload(
+            gq, gs, pay_o[gs.perm.long()], pay_o, q.n, cap=cap,
+            fallback_tiles=ft)
+        if bool(ov):
+            raise AssertionError(f"{label} payload sweep {name} overflowed")
+        d1, i1 = unsort_nn_result(gq, gs, d_s, i_s)
+        pay = unsort_rows(gq, p_s)
+        i0, d0 = pruned_search(q, s, False)
+        if not (_bit_equal(i0[: q.n], i1[: q.n])
+                and _bit_equal(d0[: q.n], d1[: q.n])):
+            raise AssertionError(f"{label} payload sweep {name} differs from "
+                                 "the default schedule")
+        if not torch.equal(pay[: q.n], pay_o[i1[: q.n].long()]):
+            raise AssertionError(f"{label} payload sweep {name}: the payload "
+                                 "is not the gather at the id")
+        oi, od = oracle[name]
+        off[name] = int(np.sum((oi != i1[: q.n].cpu().numpy())
+                               | (od != d1[: q.n].double().cpu().numpy())))
+        if off[name]:
+            raise AssertionError(f"{label} payload sweep {name}: rows off "
+                                 "the oracle")
+    return off
+
+
+def _replays(names, sweep):
+    """Run ``sweep`` once with every call of the kernel wrappers ``names``
+    (as ops/nn_pruned.py calls them) recorded; returns {name: a function
+    that replays that wrapper's calls alone}."""
+    from open_pcc_metric_tpu_torch.ops import nn_pruned as nn_mod
+
+    calls = {name: [] for name in names}
+    real = {name: getattr(nn_mod, name) for name in names}
+
+    def spy(name):
+        def call(*args, **kw):
+            calls[name].append((args, kw))
+            return real[name](*args, **kw)
+        return call
+
+    for name in names:
+        setattr(nn_mod, name, spy(name))
+    try:
+        sweep()
+    finally:
+        for name in names:
+            setattr(nn_mod, name, real[name])
+    return {name: [lambda x=x, kw=kw, f=real[name]: f(*x, **kw)
+                   for x, kw in calls[name]] for name in names}
 
 
 def stage_split(a, b, smi, ab):
     """Per sweep of the pair and per prologue: the sweep's stream time, the
     prologue's (``ab``, from ``prologue_ab``), the time of its K1 launches
     replayed alone, and the rest. CUDA events, mean of 5."""
-    from open_pcc_metric_tpu_torch.ops import nn_pruned as nn_mod
     from open_pcc_metric_tpu_torch.ops.nn_pruned import nn_pruned_sorted
 
     cap, ft = _settled_rung(a, b)
@@ -1093,28 +1447,99 @@ def stage_split(a, b, smi, ab):
                 return nn_pruned_sorted(gq, gs, q.n, exclude_self=ex, cap=cap,
                                         fallback_tiles=ft, prologue=prologue)
 
-            calls = []
-            real = nn_mod.refine_nn
-
-            def spy(*args, **kw):
-                calls.append((args, kw))
-                return real(*args, **kw)
-
-            nn_mod.refine_nn = spy
-            try:
-                sweep()
-            finally:
-                nn_mod.refine_nn = real
+            k1_calls = _replays(["refine_nn"], sweep)["refine_nn"]
             total = _time_ms(sweep, 5)
-            k1 = _time_ms(lambda: [real(*x, **kw) for x, kw in calls], 5)
+            k1 = _time_ms(lambda: [f() for f in k1_calls], 5)
             pro = ab[name][f"{prologue}_ms"]
             out[f"{name} {prologue}"] = {
                 "sweep_ms": total, "prologue_ms": pro, "k1_ms": k1,
-                "k1_launches": len(calls), "rest_ms": total - pro - k1}
-            del calls
+                "k1_launches": len(k1_calls), "rest_ms": total - pro - k1}
+            del k1_calls
     print("2M stage split " + json.dumps({"rung": [cap, ft], "sweeps": out,
                                           "card": smi}), flush=True)
     return out
+
+
+def schedule_split(a, b, label, smi, payload=True):
+    """Per sweep of the pair at the rung each schedule's ladder settled on:
+    the sweep's stream time under the default schedule with its K1 launches
+    replayed alone; under the adaptive one with each K7 pass (P1, P2, P3)
+    replayed alone; and, with ``payload``, the cross sweeps under the
+    payload schedule with K6 (stage 1) and K1 (stage 2) replayed alone.
+    The rest is the difference. CUDA events, mean of 5."""
+    from open_pcc_metric_tpu_torch.ops.fused import _pack_payload
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import (
+        nn_pruned_sorted, nn_pruned_sorted_payload)
+
+    out = {}
+    for name, q, s, ex in _sweeps(a, b):
+        gq, gs = q.get_grid(), s.get_grid()
+        rungs = {"default": _settled_rung(q, s),
+                 "adaptive": _settled_rung(q, s, "adaptive")}
+        for impl, kernel in (("default", "refine_nn"),
+                             ("adaptive", "adaptive_refine")):
+            cap, ft = rungs[impl]
+
+            def sweep():
+                return nn_pruned_sorted(gq, gs, q.n, exclude_self=ex, cap=cap,
+                                        fallback_tiles=ft, refine_impl=impl,
+                                        mxu_ok=True)
+
+            replays = _replays([kernel], sweep)[kernel]
+            total = _time_ms(sweep, 5)
+            ms = [_time_ms(f, 5) for f in replays]
+            out[f"{name} {impl}"] = {"rung": [cap, ft], "sweep_ms": total,
+                                     f"{kernel}_ms": ms,
+                                     "rest_ms": total - sum(ms)}
+        if payload and not ex:
+            cap, ft = _settled_rung(q, s, "default", True)
+            pay_o = _pack_payload(s.points, s.colors, s.normals)
+            pay_s = pay_o[gs.perm.long()]
+
+            def sweep():
+                return nn_pruned_sorted_payload(gq, gs, pay_s, pay_o, q.n,
+                                                cap=cap, fallback_tiles=ft)
+
+            replays = _replays(["refine_nn_payload", "refine_nn"], sweep)
+            total = _time_ms(sweep, 5)
+            k6 = _time_ms(lambda: [f() for f in replays["refine_nn_payload"]],
+                          5)
+            k1 = _time_ms(lambda: [f() for f in replays["refine_nn"]], 5)
+            out[f"{name} payload"] = {"rung": [cap, ft], "sweep_ms": total,
+                                      "k6_ms": k6, "k1_ms": k1,
+                                      "rest_ms": total - k6 - k1}
+    print(f"{label} schedule split " + json.dumps({"sweeps": out,
+                                                    "card": smi}), flush=True)
+    return out
+
+
+def float_adaptive_line(forigin, reconst, dev, evaluate, smi):
+    """One call on a float pair (the origin jittered off the lattice, so it
+    fails Cloud.mxu_exact) with the default schedule and one under
+    PCC_REFINE_IMPL=adaptive, fresh clouds each: the adaptive call takes
+    the default schedule (K7 launched no time, K1 did) and the same table."""
+    out = {}
+    for mode, env in (("default", {"PCC_REFINE_IMPL": None}),
+                      ("adaptive", ADAPTIVE_ENV)):
+        with _env(env):
+            (a, b), result, first_s, _, launches = _timed_runs(
+                lambda: _pair_clouds(forigin, reconst, dev), evaluate, 0)
+        out[mode] = (result, first_s, launches)
+    result, first_s, launches = out["adaptive"]
+    if a.mxu_exact() or not b.mxu_exact():
+        raise AssertionError("the float pair's gate is not (False, True)")
+    if launches["adaptive_refine"] or launches["refine_nn"] <= 0:
+        raise AssertionError("the float pair under adaptive launched K7")
+    if any(not np.array_equal(np.asarray(result[k]),
+                              np.asarray(out["default"][0][k]))
+           for k in result):
+        raise AssertionError("the float pair's adaptive table differs")
+    print("float pair under adaptive " + json.dumps({
+        "n_points": a.n + b.n, "mxu_exact": [a.mxu_exact(), b.mxu_exact()],
+        "first_call_s": {m: v[1] for m, v in out.items()},
+        "launches": {m: {k: n for k, n in v[2].items() if n}
+                     for m, v in out.items()},
+        "table_equal": True, "card": smi}), flush=True)
 
 
 def main() -> int:
@@ -1164,6 +1589,8 @@ def main() -> int:
     b = Cloud.from_numpy(reconst[0], device=dev)
     fcloud = Cloud.from_numpy(float_pts, device=dev)
     records = kernel_phases(a, b, fcloud)
+    k7_recs, _ = adaptive_phases(a, b)
+    k6_recs = payload_phases(origin, reconst, dev)
     k3_recs, k4_recs = knn_phases(a, fcloud)
     ga, gb, gf = a.get_grid(), b.get_grid(), fcloud.get_grid()
     k2a_recs, k2b_recs = select_phases([
@@ -1192,16 +1619,65 @@ def main() -> int:
     del a, b
     torch.cuda.empty_cache()
 
-    # The select prologue on the 800k pair with normals, in turns.
     kwargs = dict(color_scheme="ycc", point_to_plane=True, d2_mode="pc_error")
     from open_pcc_metric_tpu_torch.ops.fused import fused_evaluate
 
+    def evaluate(a, b):
+        return fused_evaluate(a, b, **kwargs)
+
+    def same_table(table, label):
+        if any(not np.array_equal(np.asarray(result[k]), np.asarray(table[k]))
+               for k in result):
+            raise AssertionError(f"the {label} table differs from the main "
+                                 "path's")
+
+    def k1_never(launches):
+        if launches["refine_nn"]:
+            raise AssertionError("an adaptive turn launched K1")
+
+    # The adaptive schedule (K7) and the payload schedule (K6) on the 800k
+    # pair with normals, each in turns with the default; the ladder memo's
+    # key names the schedule, so no turn starts from another's rung.
+    want = _want_psnrs(origin, reconst, sweeps, origin[2], reconst[2])
+    (a, b), ad_launches, rec, table = schedule_path(
+        "the 800k adaptive path", ADAPTIVE_ENV, "adaptive_refine",
+        lambda: _pair_clouds(origin, reconst, dev), evaluate, RUNS, smi,
+        check_on=k1_never)
+    same_table(table, "adaptive")
+    rec["sweeps"] = schedule_sweeps(a, b, "800k", "adaptive", sweeps)
+    rec["max_dpsnr_vs_oracle"] = max(_psnr_deltas(table, want).values())
+    if not rec["max_dpsnr_vs_oracle"] <= PSNR_TOL:
+        raise AssertionError("the adaptive path's PSNRs are off the oracle")
+    print("adaptive path 800k " + json.dumps(rec), flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+
+    def two_k6_a_call(launches):
+        if launches["refine_nn_payload"] != 2 * (RUNS + 1):
+            raise AssertionError("the payload path did not launch K6 twice "
+                                 "a call")
+
+    (a, b), pay_launches, rec, table = schedule_path(
+        "the 800k payload path", PAYLOAD_ENV, "refine_nn_payload",
+        lambda: _pair_clouds(origin, reconst, dev), evaluate, RUNS, smi,
+        check_on=two_k6_a_call)
+    same_table(table, "payload")
+    rec["sweep_rows_off_oracle"] = payload_sweeps(a, b, "800k", sweeps)
+    rec["max_dpsnr_vs_oracle"] = max(_psnr_deltas(table, want).values())
+    if not rec["max_dpsnr_vs_oracle"] <= PSNR_TOL:
+        raise AssertionError("the payload path's PSNRs are off the oracle")
+    print("payload path 800k " + json.dumps(rec), flush=True)
+    schedule_split(a, b, "800k", smi)
+    del a, b
+    torch.cuda.empty_cache()
+    float_adaptive_line((float_pts, origin[1], origin[2]), reconst, dev,
+                        evaluate, smi)
+
+    # The select prologue on the 800k pair with normals, in turns.
     (a, b), sel_launches, rec, table = prologue_path(
         "the 800k select path", lambda: _pair_clouds(origin, reconst, dev),
-        lambda a, b: fused_evaluate(a, b, **kwargs), RUNS, smi)
-    if any(not np.array_equal(np.asarray(result[k]), np.asarray(table[k]))
-           for k in result):
-        raise AssertionError("the select table differs from the main path's")
+        evaluate, RUNS, smi)
+    same_table(table, "select")
     rec["sweep_rows_off_oracle"] = sweeps_identical(a, b, "800k", sweeps)
     rec["sweeps_bit_identical_to_default"] = True
     print("select path 800k " + json.dumps(rec), flush=True)
@@ -1296,13 +1772,27 @@ def main() -> int:
                                ("self a->a", ga, ga, a.n, True)], smi)
     del a, b, ga, gb
     torch.cuda.empty_cache()
-    (a, b), _, rec, _ = prologue_path(
+    (a, b), _, rec, table_2m = prologue_path(
         "the 2M pair", lambda: _pair_clouds(b_origin, b_reconst, dev),
-        lambda a, b: fused_evaluate(a, b, **kwargs), RUNS, smi)
+        evaluate, RUNS, smi)
     sweeps_identical(a, b, "2M")
     rec["sweeps_bit_identical_to_default"] = True
     print("select path 2M " + json.dumps(rec), flush=True)
     stage_split(a, b, smi, ab_2m)
+    del a, b
+    torch.cuda.empty_cache()
+    # The adaptive schedule at 2M: one pair of turns, and each sweep's P3.
+    (a, b), _, rec, table = schedule_path(
+        "the 2M adaptive path", ADAPTIVE_ENV, "adaptive_refine",
+        lambda: _pair_clouds(b_origin, b_reconst, dev), evaluate, RUNS, smi,
+        order=("on", "off"), check_on=k1_never)
+    if any(not np.array_equal(np.asarray(table_2m[k]), np.asarray(table[k]))
+           for k in table):
+        raise AssertionError("the 2M adaptive table differs from the "
+                             "default's")
+    rec["sweeps"] = schedule_sweeps(a, b, "2M", "adaptive")
+    print("adaptive path 2M " + json.dumps(rec), flush=True)
+    schedule_split(a, b, "2M", smi, payload=False)
     del a, b
     torch.cuda.empty_cache()
 
@@ -1314,10 +1804,13 @@ def main() -> int:
                      "knn_moments": est_launches["knn_moments"],
                      "nn_brute": s_launches["nn_brute"],
                      "select_bbox": sel_launches["select_bbox"],
-                     "count_bbox": sel_launches["count_bbox"]}
+                     "count_bbox": sel_launches["count_bbox"],
+                     "adaptive_refine": ad_launches["adaptive_refine"],
+                     "refine_nn_payload": pay_launches["refine_nn_payload"]}
     phase_recs = {"refine_nn": records, "refine_knn": k3_recs,
                   "knn_moments": k4_recs, "nn_brute": k5_recs,
-                  "select_bbox": k2a_recs, "count_bbox": k2b_recs}
+                  "select_bbox": k2a_recs, "count_bbox": k2b_recs,
+                  "adaptive_refine": k7_recs, "refine_nn_payload": k6_recs}
     kernels = []
     for name in KERNELS:
         full = _full_phase(phase_recs[name])

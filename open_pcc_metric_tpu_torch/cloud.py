@@ -25,6 +25,12 @@ PAD_SENTINEL = 1.0e9
 # The refine kernel tiles queries by 256 rows; keep every padded size a multiple.
 _MIN_ALIGN = 256
 
+# Largest |coordinate| at which the expanded-norm distance |q|^2 + |b|^2 -
+# 2<q, b> of an integer cloud is exact in float32: every term an integer,
+# |q|^2 + |b|^2 <= 6 C^2 < 2^24 (C = 1672 is the boundary; 1600 leaves
+# margin). The JAX package's refine_adaptive.MXU_EXACT_MAX_COORD.
+MXU_EXACT_MAX_COORD = 1600.0
+
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
@@ -83,9 +89,9 @@ class Cloud:
                for host-side work: grid builds, minimal-OBB hulls.
 
     The remaining fields cache per-cloud state that depends only on the
-    cloud (grid, OBB extent, sorted colours, boundary stats, estimated
-    normals); a Cloud is immutable after construction, so the caches never
-    go stale.
+    cloud (grid, OBB extent, sorted colours and normals, boundary stats,
+    estimated normals, the ``mxu_exact`` gate); a Cloud is immutable after
+    construction, so the caches never go stale.
     """
 
     points: torch.Tensor
@@ -101,6 +107,10 @@ class Cloud:
     _boundary_stats: typing.Any = dataclasses.field(
         default=None, init=False, repr=False)
     _est_normals: typing.Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False)
+    _sorted_normals: typing.Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False)
+    _mxu_exact: typing.Optional[bool] = dataclasses.field(
         default=None, init=False, repr=False)
 
     @property
@@ -167,6 +177,18 @@ class Cloud:
 
     def valid_mask(self) -> torch.Tensor:
         return torch.arange(self.padded_size, device=self.device) < self.n
+
+    def mxu_exact(self) -> bool:
+        """Whether expanded-norm distances are exact for this cloud: every
+        valid coordinate an integer with |coord| <= MXU_EXACT_MAX_COORD.
+        Voxelised clouds (the pc_error workload) qualify; the adaptive and
+        expanded schedules run only on pairs that do. Cached."""
+        if self._mxu_exact is None:
+            pts = self.valid_points()
+            self._mxu_exact = bool(
+                np.abs(pts).max(initial=0.0) <= MXU_EXACT_MAX_COORD
+                and np.array_equal(pts, np.round(pts)))
+        return self._mxu_exact
 
     def get_obb_extent(self) -> np.ndarray:
         """Cached minimal-OBB extent of this cloud (projection sweep on its

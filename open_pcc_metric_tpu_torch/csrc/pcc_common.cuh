@@ -11,7 +11,10 @@
 // -fmad=false): d = ((dx*dx + dy*dy) + dz*dz), dx = b - q. That is the
 // uncontracted expression the plain PyTorch versions evaluate. K2a and K2b
 // likewise share one box lower bound (bbox_lb), so a select-space count is
-// taken over the very bounds the selection ordered.
+// taken over the very bounds the selection ordered. K1's expanded mode and
+// the adaptive refine K7 (adaptive_refine.cu) share the expanded-norm
+// distance (expanded), and the payload refine K6 (refine_nn_payload.cu)
+// uses offset as K1 does.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,6 +46,38 @@ __device__ __forceinline__ Offset offset(const Rec& r, float qx, float qy,
   o.d = __fadd_rn(__fadd_rn(__fmul_rn(o.dx, o.dx), __fmul_rn(o.dy, o.dy)),
                   __fmul_rn(o.dz, o.dz));
   return o;
+}
+
+// ((x*x + y*y) + z*z), each step rounded on its own.
+__device__ __forceinline__ float sq_norm(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
+                   __fmul_rn(z, z));
+}
+
+// A query packed for the expanded-norm distance: (-2x, -2y, -2z, |q|^2).
+struct XQuery {
+  float x2, y2, z2, sq;
+};
+
+// Expanded-norm squared distance from query q to the candidate (bx, by, bz)
+// with |b|^2 = bsq, in this order:
+//   d = fma(bz, -2qz, fma(by, -2qy, fma(bx, -2qx, |b|^2 + |q|^2)))
+// one add and three fused multiply-adds (__fmaf_rn), against offset's eight
+// operations. The plain versions evaluate the same order with every step
+// rounded on its own. Exact on clouds that pass Cloud.mxu_exact (integer
+// coordinates, |coord| <= 1600): every product is an integer, |b|^2 + |q|^2
+// <= 6 * 1600^2 < 2^24, and each later partial sum is at most
+// d + 4 * 1600^2, so for d < 2^24 - 4 * 1600^2 (points
+// closer than 2557 units) no step rounds, and d equals offset's d and the
+// plain chain's bit for bit. A farther pair's d may round, by a few units,
+// and still never displaces a nearer winner. Sentinel rows (1e9) round:
+// compare valid rows only.
+__device__ __forceinline__ float expanded(const XQuery& q, float bx, float by,
+                                          float bz, float bsq) {
+  float d = __fadd_rn(bsq, q.sq);
+  d = __fmaf_rn(bx, q.x2, d);
+  d = __fmaf_rn(by, q.y2, d);
+  return __fmaf_rn(bz, q.z2, d);
 }
 
 // Lexicographic (distance, original id) order: ties go to the lower id.

@@ -14,10 +14,19 @@ Under point-to-plane a cloud without normals gets them estimated
 (``Cloud.get_normals``: 30-NN PCA through the pruned k-NN with in-kernel
 moments, ``ops/normals.py``); the estimation caches the origin's boundary
 stats on the way, so the self-NN sweep is then skipped.
+
+Two knobs pick the pruned sweeps' schedules, read at each public call
+(``fused_evaluate``, ``pair_stats``, ``boundary_stats``), with the same
+tables either way: ``PCC_REFINE_IMPL=adaptive`` (or ``PCC_NN_EXPANDED=1``)
+on pairs of clouds that pass ``Cloud.mxu_exact`` (``nn_pruned`` module
+docstring), and ``PCC_PAYLOAD_KERNEL=1``, under which the two cross sweeps
+of a float32 pair that needs colours or normals return the neighbours'
+points, colours and normals from K6 instead of a gather.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import os
 import typing
 
 import numpy as np
@@ -26,8 +35,22 @@ import torch
 from . import nn as nn_ops
 from .color import get_color_peak, transform_colors
 from .grid import CHUNK
-from .nn_pruned import NN_PROLOGUE_ENV, nn_pruned_sorted, resolve_prologue
+from .nn_pruned import (
+    NN_PROLOGUE_ENV, nn_pruned_sorted, nn_pruned_sorted_payload,
+    resolve_prologue, resolve_refine_impl)
+from .refine import PAYLOAD_F
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
+
+PAYLOAD_ENV = "PCC_PAYLOAD_KERNEL"
+
+
+def resolve_payload(payload: typing.Optional[bool] = None) -> bool:
+    """Whether the cross sweeps may take the payload schedule (K6):
+    ``payload`` when given, else ``PCC_PAYLOAD_KERNEL == "1"`` read at this
+    call."""
+    if payload is None:
+        return os.environ.get(PAYLOAD_ENV) == "1"
+    return bool(payload)
 
 
 def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -81,6 +104,18 @@ def _gather_payload(pts, col, nrm, idx, *, color_scheme, point_to_plane,
     return out
 
 
+def _pack_payload(pts, col, nrm) -> torch.Tensor:
+    """(P, PAYLOAD_F) K6 payload rows [pts, col or 0, nrm or 0, 0 x 7]."""
+    zero = pts.new_zeros((pts.shape[0], 3))
+    return torch.cat([pts, col if col is not None else zero,
+                      nrm if nrm is not None else zero,
+                      pts.new_zeros((pts.shape[0], PAYLOAD_F - 9))], dim=1)
+
+
+def _split_payload(pay) -> typing.Dict[str, torch.Tensor]:
+    return {"pts": pay[:, :3], "col": pay[:, 3:6], "nrm": pay[:, 6:9]}
+
+
 def _reduce_pair(out, masks, dists, queries, pays, d2_normals, query_cols,
                  *, color_scheme, point_to_plane) -> None:
     """Fill ``out`` with both directions' masked sums and maxima. Every
@@ -112,11 +147,20 @@ def _check_normals(a_nrm, b_nrm, point_to_plane) -> None:
         raise ValueError("point_to_plane needs normals on both clouds")
 
 
+def _sorted_rows(x, perm, cached):
+    """``cached`` when given, else the rows of ``x`` in sorted order (None
+    for no ``x``)."""
+    if cached is not None or x is None:
+        return cached
+    return x[perm.long()]
+
+
 def _pair_stats_pruned(
     a_pts, b_pts, n_a, n_b, a_col, b_col, a_nrm, b_nrm, ga, gb,
-    a_col_sorted=None, b_col_sorted=None,
+    a_col_sorted=None, b_col_sorted=None, a_nrm_sorted=None,
+    b_nrm_sorted=None,
     *, color_scheme, point_to_plane, d2_mode, with_boundary,
-    prune_cap, prune_fallback, prologue,
+    prune_cap, prune_fallback, prologue, refine_impl, mxu_ok, payload,
 ) -> typing.Dict[str, typing.Any]:
     """Device reductions for one pair, evaluated in Morton-sorted space.
 
@@ -124,19 +168,43 @@ def _pair_stats_pruned(
     indices come back in ORIGINAL order (so colour/normal/point gathers hit
     the original arrays), and only the reference-D2 positional pairing and
     the query-side colours need a perm gather. Every sweep runs
-    ``prologue``.
+    ``prologue`` and ``refine_impl`` (gated by ``mxu_ok``), except that with
+    ``payload`` the cross sweeps of a float32 pair that needs colours or
+    normals run ``nn_pruned_sorted_payload`` (K6), as in the JAX package.
     """
     _check_normals(a_nrm, b_nrm, point_to_plane)
     dev = a_pts.device
     masks = (torch.arange(a_pts.shape[0], device=dev) < n_a,
              torch.arange(b_pts.shape[0], device=dev) < n_b)
-    kw = dict(cap=prune_cap, fallback_tiles=prune_fallback, prologue=prologue)
-    d0, i0, ov0 = nn_pruned_sorted(ga, gb, n_a, **kw)
-    d1, i1, ov1 = nn_pruned_sorted(gb, ga, n_b, **kw)
-    opts = dict(color_scheme=color_scheme, point_to_plane=point_to_plane,
-                d2_mode=d2_mode)
-    pays = (_gather_payload(b_pts, b_col, b_nrm, i0, **opts),
-            _gather_payload(a_pts, a_col, a_nrm, i1, **opts))
+    kw = dict(cap=prune_cap, fallback_tiles=prune_fallback, prologue=prologue,
+              refine_impl=refine_impl, mxu_ok=mxu_ok)
+    if (payload and (color_scheme is not None or point_to_plane)
+            and a_pts.dtype == torch.float32):
+
+        def packs(g, pts, col, nrm, col_s, nrm_s):
+            """A search cloud's payload rows, sorted and original order."""
+            col = col if color_scheme is not None else None
+            nrm = nrm if point_to_plane else None
+            col_s = None if col is None else _sorted_rows(col, g.perm, col_s)
+            nrm_s = None if nrm is None else _sorted_rows(nrm, g.perm, nrm_s)
+            return _pack_payload(g.points, col_s, nrm_s), _pack_payload(
+                pts, col, nrm)
+
+        pkw = dict(cap=prune_cap, fallback_tiles=prune_fallback)
+        d0, i0, p0, ov0 = nn_pruned_sorted_payload(
+            ga, gb, *packs(gb, b_pts, b_col, b_nrm, b_col_sorted,
+                           b_nrm_sorted), n_a, **pkw)
+        d1, i1, p1, ov1 = nn_pruned_sorted_payload(
+            gb, ga, *packs(ga, a_pts, a_col, a_nrm, a_col_sorted,
+                           a_nrm_sorted), n_b, **pkw)
+        pays = (_split_payload(p0), _split_payload(p1))
+    else:
+        d0, i0, ov0 = nn_pruned_sorted(ga, gb, n_a, **kw)
+        d1, i1, ov1 = nn_pruned_sorted(gb, ga, n_b, **kw)
+        opts = dict(color_scheme=color_scheme, point_to_plane=point_to_plane,
+                    d2_mode=d2_mode)
+        pays = (_gather_payload(b_pts, b_col, b_nrm, i0, **opts),
+                _gather_payload(a_pts, a_col, a_nrm, i1, **opts))
     overflow = ov0 | ov1
 
     out: typing.Dict[str, typing.Any] = {"n_a": n_a, "n_b": n_b}
@@ -156,9 +224,8 @@ def _pair_stats_pruned(
         else:
             d2_normals = (pays[0]["nrm"], pays[1]["nrm"])
     if color_scheme is not None:
-        query_cols = (
-            a_col_sorted if a_col_sorted is not None else a_col[ga.perm.long()],
-            b_col_sorted if b_col_sorted is not None else b_col[gb.perm.long()])
+        query_cols = (_sorted_rows(a_col, ga.perm, a_col_sorted),
+                      _sorted_rows(b_col, gb.perm, b_col_sorted))
     _reduce_pair(out, masks, (d0, d1), (ga.points, gb.points), pays,
                  d2_normals, query_cols, color_scheme=color_scheme,
                  point_to_plane=point_to_plane)
@@ -227,6 +294,11 @@ def pair_stats(
     prune_cap: int = 32,
     prune_fallback: int = 256,
     prologue: typing.Optional[str] = None,
+    a_nrm_sorted: typing.Optional[torch.Tensor] = None,
+    b_nrm_sorted: typing.Optional[torch.Tensor] = None,
+    refine_impl: typing.Optional[str] = None,
+    mxu_ok: bool = False,
+    payload: typing.Optional[bool] = None,
 ) -> typing.Dict[str, typing.Any]:
     """Device-side reductions for the full metric suite (tensors on the
     clouds' device). ``backend`` as ``nn.resolve_backend`` reads it: the
@@ -234,7 +306,10 @@ def pair_stats(
     sorted colours; the pruned search adds ``nn_overflow``, which reports
     certificate overflow — the caller must re-run with a larger
     prune_cap/prune_fallback. ``prologue`` is the pruned sweeps'
-    (``nn_pruned``), by default ``PCC_NN_PROLOGUE`` read at this call."""
+    (``nn_pruned``), by default ``PCC_NN_PROLOGUE`` read at this call;
+    ``refine_impl`` and ``payload`` (module docstring) default to
+    ``resolve_refine_impl`` and ``resolve_payload`` at this call, and
+    ``mxu_ok`` asserts that both clouds pass ``Cloud.mxu_exact``."""
     rows = max(a_pts.shape[0], b_pts.shape[0])
     if nn_ops.resolve_backend(backend, rows) == "brute":
         return _pair_stats_brute(
@@ -249,11 +324,13 @@ def pair_stats(
         gb = build_grid(b_pts, n_b)
     return _pair_stats_pruned(
         a_pts, b_pts, n_a, n_b, a_col, b_col, a_nrm, b_nrm, ga, gb,
-        a_col_sorted, b_col_sorted,
+        a_col_sorted, b_col_sorted, a_nrm_sorted, b_nrm_sorted,
         color_scheme=color_scheme, point_to_plane=point_to_plane,
         d2_mode=d2_mode, with_boundary=with_boundary,
         prune_cap=prune_cap, prune_fallback=prune_fallback,
         prologue=resolve_prologue(prologue, NN_PROLOGUE_ENV),
+        refine_impl=resolve_refine_impl(refine_impl), mxu_ok=mxu_ok,
+        payload=resolve_payload(payload),
     )
 
 
@@ -360,6 +437,23 @@ def _sorted_colors(cloud) -> typing.Optional[torch.Tensor]:
     return cloud._sorted_colors
 
 
+def _sorted_normals(cloud, nrm) -> typing.Optional[torch.Tensor]:
+    """Per-Cloud cached Morton-sorted normals ``nrm`` (the file's or the
+    estimated ones, which depend only on the cloud)."""
+    if nrm is None:
+        return None
+    if cloud._sorted_normals is None:
+        cloud._sorted_normals = nrm[cloud.get_grid().perm.long()]
+    return cloud._sorted_normals
+
+
+def _mxu_ok(a, b=None) -> bool:
+    """Whether the expanded-norm schedules may run on these float32
+    clouds (each passes ``Cloud.mxu_exact``)."""
+    return all(c.points.dtype == torch.float32 and c.mxu_exact()
+               for c in (a, b) if c is not None)
+
+
 def _ladder(n_chunks: int, run, cap: int, fallback: int):
     """Escalate (cap, fallback) until ``run`` certifies; returns its result."""
     while True:
@@ -373,13 +467,16 @@ def _ladder(n_chunks: int, run, cap: int, fallback: int):
 
 def boundary_stats(cloud, backend: str = "auto", prune_cap: int = 32,
                    prune_fallback: int = 256,
-                   prologue: typing.Optional[str] = None):
+                   prologue: typing.Optional[str] = None,
+                   refine_impl: typing.Optional[str] = None):
     """Cached (min, max) intra-cloud NN distances of one cloud (device
     0-d tensors). They depend only on the cloud (reference:
     cloud_pair.py:108-109), so a sweep sharing one reference cloud computes
     the priciest NN pass once. ``backend`` as ``nn.resolve_backend`` reads
     it; the pruned pass escalates from (prune_cap, prune_fallback) with
-    ``prologue``, by default ``PCC_NN_PROLOGUE`` read at this call."""
+    ``prologue`` and ``refine_impl``, by default ``PCC_NN_PROLOGUE`` and
+    ``resolve_refine_impl`` read at this call (the latter gated by the
+    cloud's ``mxu_exact``)."""
     if cloud._boundary_stats is not None:
         return cloud._boundary_stats
     if int(cloud.n) < 2:
@@ -392,11 +489,14 @@ def boundary_stats(cloud, backend: str = "auto", prune_cap: int = 32,
     else:
         g = cloud.get_grid()
         prologue = resolve_prologue(prologue, NN_PROLOGUE_ENV)
+        refine_impl = resolve_refine_impl(refine_impl)
+        mxu_ok = refine_impl != "default" and _mxu_ok(cloud)
 
         def run(cap, fallback):
             d, _, overflow = nn_pruned_sorted(
                 g, g, cloud.n, exclude_self=True, cap=cap,
-                fallback_tiles=fallback, prologue=prologue)
+                fallback_tiles=fallback, prologue=prologue,
+                refine_impl=refine_impl, mxu_ok=mxu_ok)
             return d, bool(overflow)
 
         d, _ = _ladder(cloud.padded_size // CHUNK, run, prune_cap,
@@ -441,9 +541,14 @@ def fused_evaluate(
     ``next_rung`` (one synchronous overflow readback per attempt). The
     pruned sweeps' prologue is ``PCC_NN_PROLOGUE`` and the estimation's
     ``PCC_KNN_PROLOGUE``, both read at this call ("select" selects the
-    fused select prologue, K2a/K2b).
+    fused select prologue, K2a/K2b), and so are the sweeps' refine
+    schedules (``PCC_REFINE_IMPL``, ``PCC_NN_EXPANDED``,
+    ``PCC_PAYLOAD_KERNEL``; module docstring). The ladder remembers its rung
+    per shape and schedule.
     """
     prologue = resolve_prologue(None, NN_PROLOGUE_ENV)
+    refine_impl = resolve_refine_impl(None)
+    payload = resolve_payload(None)
     backend = nn_ops.resolve_backend(backend,
                                      max(a.padded_size, b.padded_size))
     if a.device != b.device or a.points.dtype != b.points.dtype:
@@ -470,19 +575,26 @@ def fused_evaluate(
     kwargs = dict(color_scheme=color_scheme, point_to_plane=point_to_plane,
                   d2_mode=d2_mode, with_boundary=with_boundary)
 
-    ga = gb = a_col_sorted = b_col_sorted = None
+    ga = gb = a_col_sorted = b_col_sorted = a_nrm_sorted = b_nrm_sorted = None
+    mxu_ok = False
     if backend == "pruned":
         ga, gb = a.get_grid(), b.get_grid()
         if color_scheme is not None:
             a_col_sorted = _sorted_colors(a)
             b_col_sorted = _sorted_colors(b)
+        if point_to_plane and payload:
+            a_nrm_sorted = _sorted_normals(a, a_nrm)
+            b_nrm_sorted = _sorted_normals(b, b_nrm)
+        mxu_ok = refine_impl != "default" and _mxu_ok(a, b)
 
     def run(cap=None, fallback=None):
         stats = pair_stats(
             a.points, b.points, a.n, b.n, a.colors, b.colors,
             a_nrm, b_nrm, ga, gb, a_col_sorted, b_col_sorted,
             backend=backend, prune_cap=cap, prune_fallback=fallback,
-            prologue=prologue, **kwargs)
+            prologue=prologue, a_nrm_sorted=a_nrm_sorted,
+            b_nrm_sorted=b_nrm_sorted, refine_impl=refine_impl,
+            mxu_ok=mxu_ok, payload=payload, **kwargs)
         if not with_boundary:
             stats["self_min"], stats["self_max"] = a._boundary_stats
         host = _to_host(stats)  # one round-trip: results + overflow
@@ -491,8 +603,11 @@ def fused_evaluate(
     if backend == "brute":
         (stats, host), _ = run()
     else:
+        # The schedule is part of the key: a rung that certified under one
+        # must not seed another's first call.
         memo_key = (a.padded_size, b.padded_size, str(a.points.dtype),
-                    color_scheme, point_to_plane, d2_mode, backend)
+                    color_scheme, point_to_plane, d2_mode, backend,
+                    refine_impl, payload)
         cap, fallback = ladder_lookup(_LADDER_MEMO, memo_key,
                                       (prune_cap, prune_fallback))
         (stats, host), rung = _ladder(

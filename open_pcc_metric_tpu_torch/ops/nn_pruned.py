@@ -36,6 +36,21 @@ Two prologues produce the stage-1 candidates and counts, chosen per call
     the current rows (stage 1's rounded order shares no usable prefix with
     it). Results equal the default's bit for bit; tier choice and
     ``overflow`` follow the JAX package's select mode.
+
+Two more schedules, the JAX package's opt-in ones, give the same results
+on valid rows:
+
+  * ``refine_impl="adaptive"`` on clouds whose distances the expanded-norm
+    form computes exactly (``mxu_ok``, from ``Cloud.mxu_exact``):
+    ``nn_pruned_adaptive_sorted``, three K7 passes (``refine_adaptive``)
+    over the bound matrix. Other clouds keep the default schedule, as in
+    the JAX package. ``refine_impl="expanded"`` (with ``mxu_ok``) keeps the
+    default schedule and runs every K1 call in its expanded-norm mode. The
+    public entry points read ``PCC_REFINE_IMPL`` ("adaptive") and
+    ``PCC_NN_EXPANDED`` ("1") at each call (``resolve_refine_impl``).
+  * ``nn_pruned_sorted_payload``: stage 1 through K6, which also returns
+    the winner's payload row, and one tier refined from scratch through K1
+    (the fused evaluation's ``PCC_PAYLOAD_KERNEL=1``).
 """
 from __future__ import annotations
 
@@ -45,13 +60,34 @@ import typing
 import torch
 
 from .grid import CHUNK, ChunkGrid, bbox_lower_bounds, build_grid
-from .refine import refine_nn
+from .refine import PAYLOAD_F, refine_nn, refine_nn_payload
+from .refine_adaptive import adaptive_refine, pack_candidates, pack_queries
 from .select import count_bbox, select_bbox
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
 
 PROLOGUES = ("xla", "select")
 NN_PROLOGUE_ENV = "PCC_NN_PROLOGUE"
 KNN_PROLOGUE_ENV = "PCC_KNN_PROLOGUE"
+REFINE_IMPLS = ("default", "adaptive", "expanded")
+REFINE_IMPL_ENV = "PCC_REFINE_IMPL"
+NN_EXPANDED_ENV = "PCC_NN_EXPANDED"
+
+
+def resolve_refine_impl(refine_impl: typing.Optional[str] = None) -> str:
+    """The 1-NN refine schedule a call asks for: ``refine_impl`` when given,
+    else read from the environment at this call: "adaptive" when
+    ``PCC_REFINE_IMPL`` is "adaptive", else "expanded" when
+    ``PCC_NN_EXPANDED`` is "1", else "default". Either only takes effect on
+    clouds that pass ``Cloud.mxu_exact`` (``nn_pruned_sorted``'s mxu_ok)."""
+    if refine_impl is None:
+        if os.environ.get(REFINE_IMPL_ENV) == "adaptive":
+            return "adaptive"
+        return "expanded" if os.environ.get(NN_EXPANDED_ENV) == "1" \
+            else "default"
+    if refine_impl not in REFINE_IMPLS:
+        raise ValueError(f"unknown refine_impl {refine_impl!r}; one of "
+                         f"{REFINE_IMPLS}")
+    return refine_impl
 
 
 def resolve_prologue(prologue: typing.Optional[str], env: str) -> str:
@@ -168,6 +204,8 @@ def nn_pruned_sorted(
     fallback_tiles: int = 128,
     p1: int = 8,
     prologue: str = "xla",
+    refine_impl: str = "default",
+    mxu_ok: bool = False,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """1-NN in Morton-sorted query order.
 
@@ -184,7 +222,20 @@ def nn_pruned_sorted(
     cap2b), both seeded and gated. With cap <= 8 stage 1 is one refine of
     all ``cap`` chunks. ``prologue`` ("xla" or "select") picks where the
     stage-1 candidates and counts come from (module docstring).
+
+    ``mxu_ok`` asserts that both clouds pass ``Cloud.mxu_exact``. Only then
+    does ``refine_impl="adaptive"`` run ``nn_pruned_adaptive_sorted`` (the
+    rung maps to cap max(64, cap) and ft3 max(64, fallback_tiles // 4), as
+    in the JAX package; it keeps its own probe width and the bound-matrix
+    prologue) and ``refine_impl="expanded"`` K1's expanded-norm mode.
+    Results are bit-identical either way on valid rows.
     """
+    refine_impl = resolve_refine_impl(refine_impl)
+    if refine_impl == "adaptive" and mxu_ok:
+        return nn_pruned_adaptive_sorted(
+            ga, gb, n_a, exclude_self=exclude_self, cap=max(64, cap),
+            ft3=max(64, fallback_tiles // 4))
+    expanded = refine_impl == "expanded" and mxu_ok
     nta = ga.points.shape[0] // CHUNK
     ncb = gb.n_chunks
     cap = min(cap, ncb)
@@ -194,7 +245,7 @@ def nn_pruned_sorted(
 
     def refine(cand, **kw):
         return refine_nn(ga.points, gb.points, gb.perm, cand.contiguous(),
-                         exclude_self=exclude_self, **kw)
+                         exclude_self=exclude_self, expanded=expanded, **kw)
 
     if cap > 8:
         p1 = max(1, min(p1, cap - 1))
@@ -261,6 +312,121 @@ def nn_pruned_sorted(
             overflow = overflow | (counts2a > cap2a).any()
 
     return dmin.reshape(nta * CHUNK), gidx.reshape(nta * CHUNK), overflow
+
+
+def nn_pruned_adaptive_sorted(
+    ga: ChunkGrid,
+    gb: ChunkGrid,
+    n_a: int,
+    exclude_self: bool = False,
+    cap: int = 64,
+    ft3: int = 64,
+    p1: int = 8,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The adaptive 1-NN schedule (the JAX package's
+    ``nn_pruned_adaptive_sorted``), every refine through K7.
+
+    Same contract as ``nn_pruned_sorted``. Only for float32 clouds that
+    pass ``Cloud.mxu_exact`` (the caller's gate): K7's expanded-norm
+    distances are exact there.
+
+      P1  a probe of the ``p1`` lowest-lb chunks of every tile;
+      P2  each tile extended, seeded and gated, to min(count1, cap) chunks
+          of its lb order, count1 being the certificate count of P1's ub;
+      P3  the ``ft3`` tiles with the largest count2 > cap (count2 from P2's
+          ub) refined from scratch over their full lb order for count2
+          slots, their rows taken only where they ran.
+
+    ``overflow`` is set when more than ``ft3`` tiles need P3; a tile that
+    P3 refined is exact by construction.
+    """
+    if ga.points.dtype != torch.float32:
+        raise ValueError("adaptive refinement is float32-only")
+    nta = ga.points.shape[0] // CHUNK
+    ncb = gb.n_chunks
+    cap = min(cap, ncb)
+    p1 = min(p1, cap)
+    valid_t, lb, order = tile_bounds(ga, gb, n_a)
+    qhat = pack_queries(ga.points)
+    bhat = pack_candidates(gb.points, gb.perm)
+    tids = torch.arange(nta, dtype=torch.int32, device=ga.points.device)
+
+    def refine(cand, ncand, tiles, init=None):
+        return adaptive_refine(qhat, bhat, cand.contiguous(),
+                               ncand.to(torch.int32), tiles, init=init,
+                               exclude_self=exclude_self)
+
+    d1, i1 = refine(order[:, :p1], torch.full_like(tids, p1), tids)
+    count1 = count_under(lb, cert_ub(d1, valid_t))
+    if cap > p1:
+        ncand2 = torch.clamp(torch.clamp(count1, max=cap) - p1, 0, cap - p1)
+        d2, i2 = refine(order[:, p1:cap], ncand2, tids, init=(d1, i1))
+    else:
+        d2, i2 = d1, i1
+    count2 = count_under(lb, cert_ub(d2, valid_t))
+
+    ft = min(ft3, nta)
+    is_tail = count2 > cap
+    overflow = is_tail.sum() > ft
+    if ft > 0 and cap < ncb:
+        otiles = stable_top(torch.where(is_tail, count2, 0), ft)
+        ncand3 = torch.where(is_tail[otiles], count2[otiles], 0)
+        # order rows are each tile's full stable lb order (jnp.argsort's).
+        d3, i3 = refine(order[otiles], ncand3, otiles.to(torch.int32))
+        take = (ncand3 > 0)[:, None]
+        d2 = d2.index_copy(0, otiles, torch.where(take, d3, d2[otiles]))
+        i2 = i2.index_copy(0, otiles, torch.where(take, i3, i2[otiles]))
+    return d2.reshape(nta * CHUNK), i2.reshape(nta * CHUNK), overflow
+
+
+def nn_pruned_sorted_payload(
+    ga: ChunkGrid,
+    gb: ChunkGrid,
+    pay_sorted: torch.Tensor,
+    pay_orig: torch.Tensor,
+    n_a: int,
+    exclude_self: bool = False,
+    cap: int = 32,
+    fallback_tiles: int = 128,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """1-NN in Morton-sorted query order plus the winner's payload row (the
+    JAX package's ``nn_pruned_sorted_payload``).
+
+    ``pay_sorted`` (Pb, PAYLOAD_F) is the search cloud's payload in sorted
+    order, ``pay_orig`` the same rows in original order. Returns ``(dist_sq
+    (Pa,), idx_into_ORIGINAL_b (Pa,) int32, payload (Pa, PAYLOAD_F),
+    overflow)``. Schedule: stage 1 is K6 over the ``cap`` lowest-lb chunks
+    of every tile, ungated and unseeded; then the certificate, and one tier
+    of the top ``fallback_tiles`` tiles by count (over-cap or not) refined
+    from scratch through K1 over cap2 = min(max(8 cap, 512), ncb) chunks,
+    their payload rows patched by a gather of ``pay_orig`` at the id.
+    """
+    nta = ga.points.shape[0] // CHUNK
+    ncb = gb.n_chunks
+    cap = min(cap, ncb)
+    valid_t, lb, order = tile_bounds(ga, gb, n_a)
+    dmin, gidx, pay = refine_nn_payload(
+        ga.points, gb.points, gb.perm, pay_sorted,
+        order[:, :cap].contiguous(), exclude_self=exclude_self)
+    counts = count_under(lb, cert_ub(dmin, valid_t))
+    ft = min(fallback_tiles, nta)
+    cap2 = min(max(8 * cap, 512), ncb)
+    overflow = (counts > cap).sum() > ft
+    if ft > 0 and cap2 > cap:
+        otiles = stable_top(counts, ft)
+        fd, fi = refine_nn(ga.points, gb.points, gb.perm,
+                           order[otiles, :cap2].contiguous(),
+                           tiles=otiles.to(torch.int32),
+                           exclude_self=exclude_self)
+        counts2 = count_under(lb[otiles], cert_ub(fd, valid_t[otiles]))
+        overflow = overflow | (counts2 > cap2).any()
+        dmin = dmin.index_copy(0, otiles, fd)
+        gidx = gidx.index_copy(0, otiles, fi)
+        fpay = pay_orig[fi.long().clamp(0, pay_orig.shape[0] - 1)]
+        pay = pay.reshape(nta, CHUNK, PAYLOAD_F).index_copy(
+            0, otiles, fpay).reshape(nta * CHUNK, PAYLOAD_F)
+    return (dmin.reshape(nta * CHUNK), gidx.reshape(nta * CHUNK), pay,
+            overflow)
 
 
 def unsort_rows(g: ChunkGrid, x: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,18 @@
-"""The refine kernels: K1 (1-NN), K3 (k-NN) and K4 (k-NN moment sums).
+"""The refine kernels: K1 (1-NN), K6 (1-NN with payload), K3 (k-NN) and K4
+(k-NN moment sums).
 
 Each refines 256-query tiles over candidate chunks of a Morton grid:
 
   * ``refine_nn`` (K1) keeps the lexicographic (d, original id) minimum:
     every pruned 1-NN pass (probe, gated extension, both certificate tiers,
     cross and self) runs it. Kernel ``csrc/refine_nn.cu``, the port of
-    ``refine_pallas.py`` ``refine_nn_pallas_t``.
+    ``refine_pallas.py`` ``refine_nn_pallas_t``, with its expanded-norm mode
+    (``expanded=True``) for clouds that pass ``Cloud.mxu_exact``.
+  * ``refine_nn_payload`` (K6) is K1 without gate or seed that also returns
+    the winner's ``PAYLOAD_F``-float payload row: the cross sweeps of the
+    payload schedule (``nn_pruned.nn_pruned_sorted_payload``) run it.
+    Kernel ``csrc/refine_nn_payload.cu``, the port of
+    ``refine_nn_pallas_payload``.
   * ``refine_knn`` (K3) keeps the k lexicographically smallest pairs: the
     pruned k-NN of the normal estimation runs it. Kernel
     ``csrc/refine_knn.cu``, the port of ``refine_knn_pallas_t``.
@@ -16,9 +23,10 @@ Each refines 256-query tiles over candidate chunks of a Morton grid:
 On CUDA tensors each wrapper launches its hand-written kernel on the
 current stream (or raises); on CPU tensors it runs its plain PyTorch
 version (``*_reference``), which is also what the kernel is checked against
-on the card. All three compute the squared distance as ((dx^2 + dy^2) +
-dz^2) with dx = b - q, each step rounded on its own, so K4's membership
-test sees the distances K3 kept.
+on the card. All compute the squared distance as ((dx^2 + dy^2) + dz^2)
+with dx = b - q, each step rounded on its own, so K4's membership test
+sees the distances K3 kept. K1's expanded mode and the adaptive refine
+(``refine_adaptive.py``, K7) use ``_expanded`` instead.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from .grid import CHUNK
 INT_MAX = torch.iinfo(torch.int32).max
 MOM_CH = 10  # [cnt, sx, sy, sz, sxx, syy, szz, sxy, sxz, syz]
 MAX_K = 32  # the largest k one K3 build serves
+PAYLOAD_F = 16  # K6 payload rows: [pts 3, col 3, nrm 3, 0 x 7]
 
 # The plain versions materialise (tiles, 256, slots * 256) blocks; this
 # bounds one block's element count (64 MB of float32).
@@ -93,13 +102,52 @@ def _offsets(q: torch.Tensor, pts: torch.Tensor):
     return (*diffs, d)
 
 
+def sq_norm(points: torch.Tensor) -> torch.Tensor:
+    """(P,) ((x*x + y*y) + z*z) of (P, 3) points, each step rounded on its
+    own (``pcc::sq_norm``)."""
+    x, y, z = points.unbind(dim=1)
+    return (x * x + y * y) + z * z
+
+
+def expanded_queries(points: torch.Tensor) -> torch.Tensor:
+    """(P, 4) queries packed for the expanded-norm distance:
+    (-2x, -2y, -2z, |q|^2)."""
+    return torch.cat([-2.0 * points, sq_norm(points)[:, None]], dim=1)
+
+
+def expanded_candidates(points: torch.Tensor) -> torch.Tensor:
+    """(P, 4) candidates packed for the expanded-norm distance:
+    (x, y, z, |b|^2)."""
+    return torch.cat([points, sq_norm(points)[:, None]], dim=1)
+
+
+def _expanded(q: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Expanded-norm d of candidates ``pts`` (n, 1, m, 4) from queries ``q``
+    (n, 256, 4), packed as ``expanded_candidates`` / ``expanded_queries``:
+    (((|b|^2 + |q|^2) + bx*(-2qx)) + by*(-2qy)) + bz*(-2qz), each step
+    rounded on its own. ``pcc::expanded`` takes the same order with fused
+    multiply-adds; both equal the difference form bit for bit on clouds
+    that pass ``Cloud.mxu_exact`` (for pairs closer than 2557 units), and
+    neither is exact on sentinel rows."""
+    d = pts[..., 3] + q[:, :, None, 3]
+    for c in range(3):
+        d = d + pts[..., c] * q[:, :, None, c]
+    return d
+
+
+def _difference(q: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    return _offsets(q, pts)[3]
+
+
 def _blocks(q_sorted, b_sorted, b_orig, cand, tiles, row_elems):
     """Batches of tiles for the plain versions: yields (s, e, q, pts, ids,
-    t, c) with q (n, 256, 3) the queries, pts (n, 1, w*256, 3) and ids
-    (n, 1, w*256) the candidates, t and c the tile and chunk ids (int64)."""
+    t, c) with q (n, 256, f) the queries, pts (n, 1, w*256, f) and ids
+    (n, 1, w*256) the candidates, t and c the tile and chunk ids (int64),
+    where f is the points' width (3, or 4 when packed for ``_expanded``)."""
     nt, w = cand.shape
-    q_tiles = q_sorted.reshape(-1, CHUNK, 3)
-    b_chunks = b_sorted.reshape(-1, CHUNK, 3)
+    f = q_sorted.shape[1]
+    q_tiles = q_sorted.reshape(-1, CHUNK, f)
+    b_chunks = b_sorted.reshape(-1, CHUNK, f)
     o_chunks = b_orig.reshape(-1, CHUNK)
     if tiles is None:
         tiles = torch.arange(nt, dtype=torch.int32, device=q_sorted.device)
@@ -108,7 +156,7 @@ def _blocks(q_sorted, b_sorted, b_orig, cand, tiles, row_elems):
         e = min(nt, s + bt)
         t, c = tiles[s:e].long(), cand[s:e].long()
         n = e - s
-        yield (s, e, q_tiles[t], b_chunks[c].reshape(n, 1, w * CHUNK, 3),
+        yield (s, e, q_tiles[t], b_chunks[c].reshape(n, 1, w * CHUNK, f),
                o_chunks[c].reshape(n, 1, w * CHUNK), t, c)
 
 
@@ -142,6 +190,7 @@ def refine_nn_reference(
     ncand: Opt = None,
     init: Init = None,
     exclude_self: bool = False,
+    expanded: bool = False,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K1, on any device and float dtype.
 
@@ -149,19 +198,33 @@ def refine_nn_reference(
     query row r of tile ``tiles[t]`` (default t), the lexicographic minimum
     of (d, b_orig[col]) over the columns of chunks ``cand[t, :ncand[t]]``
     (all of ``cand[t]`` when ncand is None), merged with ``init[t]``. The
-    distance sums (b - q)^2 over x, y, z in that order. Works over batches
-    of tiles, like the JAX package's ``refine_xla``.
+    distance sums (b - q)^2 over x, y, z in that order, or with
+    ``expanded`` is the expanded-norm form (``_expanded``), which only
+    callers of clouds that pass ``Cloud.mxu_exact`` may ask for. Works over
+    batches of tiles, like the JAX package's ``refine_xla``.
     """
     _check(q_sorted, b_sorted, b_orig, cand, tiles, ncand)
     nt, w = cand.shape
     if init is not None:
         _check_pair("init", *init, (nt, CHUNK), q_sorted.dtype)
-    dev = q_sorted.device
-    out_d = torch.empty((nt, CHUNK), dtype=q_sorted.dtype, device=dev)
+    if expanded:
+        return _lexmin(expanded_queries(q_sorted),
+                       expanded_candidates(b_sorted), b_orig, cand, tiles,
+                       ncand, init, exclude_self, _expanded)
+    return _lexmin(q_sorted, b_sorted, b_orig, cand, tiles, ncand, init,
+                   exclude_self, _difference)
+
+
+def _lexmin(q, b, b_orig, cand, tiles, ncand, init, exclude_self, dist):
+    """The 1-NN refines' plain body over (P, f) queries and candidates:
+    ``dist(q_block, pts_block)`` gives the distances."""
+    nt, w = cand.shape
+    dev = q.device
+    out_d = torch.empty((nt, CHUNK), dtype=q.dtype, device=dev)
     out_i = torch.empty((nt, CHUNK), dtype=torch.int32, device=dev)
-    for s, e, q, pts, ids, t, c in _blocks(q_sorted, b_sorted, b_orig, cand,
-                                           tiles, w * CHUNK):
-        d = _offsets(q, pts)[3]
+    for s, e, qb, pts, ids, t, c in _blocks(q, b, b_orig, cand, tiles,
+                                            w * CHUNK):
+        d = dist(qb, pts)
         live = _live(ncand, s, e, w, dev)
         if live is not None:
             d = torch.where(live, d, torch.inf)
@@ -178,6 +241,60 @@ def refine_nn_reference(
         out_d[s:e] = dmin
         out_i[s:e] = gidx
     return out_d, out_i
+
+
+# ---------------------------------------------------------------- K6
+
+
+def _check_payload(pay_sorted, b_sorted):
+    if (tuple(pay_sorted.shape) != (b_sorted.shape[0], PAYLOAD_F)
+            or pay_sorted.dtype != b_sorted.dtype):
+        raise ValueError(f"pay_sorted must be ({b_sorted.shape[0]}, "
+                         f"{PAYLOAD_F}) of the points dtype")
+
+
+def refine_nn_payload_reference(
+    q_sorted: torch.Tensor,
+    b_sorted: torch.Tensor,
+    b_orig: torch.Tensor,
+    pay_sorted: torch.Tensor,
+    cand: torch.Tensor,
+    exclude_self: bool = False,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K6, on any device and float dtype.
+
+    Returns ((nt, 256) d, (nt, 256) id, (nt * 256, PAYLOAD_F) payload): d
+    and id as ``refine_nn_reference`` over every slot of ``cand`` (no gate,
+    no seed), and the payload row ``pay_sorted[col]`` at the winning sorted
+    column col (the lowest original id among the minima), zeros where no
+    candidate won. ``pay_sorted`` lies in the candidates' sorted order, so
+    the payload equals a gather of the original-order payload at the id.
+    """
+    _check(q_sorted, b_sorted, b_orig, cand, None, None)
+    _check_payload(pay_sorted, b_sorted)
+    nt, w = cand.shape
+    dev = q_sorted.device
+    out_d = torch.full((nt, CHUNK), torch.inf, dtype=q_sorted.dtype,
+                       device=dev)
+    out_i = torch.full((nt, CHUNK), INT_MAX, dtype=torch.int32, device=dev)
+    out_p = torch.zeros((nt, CHUNK, PAYLOAD_F), dtype=q_sorted.dtype,
+                        device=dev)
+    for s, e, q, pts, ids, t, c in _blocks(q_sorted, b_sorted, b_orig, cand,
+                                           None, 2 * w * CHUNK) if w else ():
+        d = _difference(q, pts)
+        if exclude_self:
+            d = torch.where(_self_mask(t, c), torch.inf, d)
+        dmin = d.amin(dim=2)
+        at_min = d == dmin[..., None]
+        gidx = torch.where(at_min, ids, INT_MAX).amin(dim=2)
+        win = at_min & (ids == gidx[..., None])
+        pos = win.to(torch.int8).argmax(dim=2)  # the first winning position
+        col = c.gather(1, pos // CHUNK) * CHUNK + pos % CHUNK
+        out_p[s:e] = torch.where(win.any(dim=2)[..., None],
+                                 pay_sorted[col], 0)
+        out_d[s:e] = dmin
+        out_i[s:e] = gidx
+    return out_d, out_i, out_p.reshape(nt * CHUNK, PAYLOAD_F)
 
 
 # ---------------------------------------------------------------- K3
@@ -305,7 +422,10 @@ def knn_moments_reference(
 
 # name -> (C entry, number of pointer arguments, number of int arguments)
 _ENTRIES = {
-    "refine_nn": ("pcc_refine_nn", 10, 3),
+    "refine_nn": ("pcc_refine_nn", 10, 4),
+    "refine_nn_payload": ("pcc_refine_nn_payload", 8, 3),
+    # K7, wrapped by ops/refine_adaptive.adaptive_refine
+    "adaptive_refine": ("pcc_adaptive_refine", 9, 5),
     "refine_knn": ("pcc_refine_knn", 10, 4),
     "knn_moments": ("pcc_knn_moments", 10, 2),
     "nn_brute": ("pcc_nn_brute", 6, 5),  # K5, wrapped by ops/nn.nn_argmin
@@ -368,18 +488,21 @@ def refine_nn(
     ncand: Opt = None,
     init: Init = None,
     exclude_self: bool = False,
+    expanded: bool = False,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """K1 (see ``refine_nn_reference`` for the contract).
 
     CPU tensors run the plain version. CUDA tensors launch the kernel on
     the current stream, or raise: the kernel takes float32 only, every
     tensor contiguous and on one device, and ``cand``/``tiles`` values must
-    index chunks of ``b_sorted`` / tiles of ``q_sorted``. Each launch adds
-    one to ``refine_nn.launches``.
+    index chunks of ``b_sorted`` / tiles of ``q_sorted``. With ``expanded``
+    the kernel fuses the expanded form's multiply-adds, so it equals the
+    plain version on the valid rows of clouds that pass ``Cloud.mxu_exact``
+    only. Each launch adds one to ``refine_nn.launches``.
     """
     if q_sorted.device.type == "cpu":
         return refine_nn_reference(q_sorted, b_sorted, b_orig, cand, tiles,
-                                   ncand, init, exclude_self)
+                                   ncand, init, exclude_self, expanded)
     _check(q_sorted, b_sorted, b_orig, cand, tiles, ncand)
     nt, w = cand.shape
     if init is not None:
@@ -393,9 +516,50 @@ def refine_nn(
         return out_d, out_i
     _launch("refine_nn", q_sorted.device,
             [q_sorted, b_sorted, b_orig, cand, tiles, ncand, init_d, init_i,
-             out_d, out_i], [nt, w, int(bool(exclude_self))])
+             out_d, out_i], [nt, w, int(bool(exclude_self)),
+                             int(bool(expanded))])
     refine_nn.launches += 1
     return out_d, out_i
+
+
+def refine_nn_payload(
+    q_sorted: torch.Tensor,
+    b_sorted: torch.Tensor,
+    b_orig: torch.Tensor,
+    pay_sorted: torch.Tensor,
+    cand: torch.Tensor,
+    exclude_self: bool = False,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6 (see ``refine_nn_payload_reference`` for the contract).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel on
+    the current stream, or raise: float32 only, every tensor contiguous and
+    on one device, ``pay_sorted`` 16-byte aligned, and ``cand`` values must
+    index chunks of ``b_sorted``. Each launch adds one to
+    ``refine_nn_payload.launches``.
+    """
+    if q_sorted.device.type == "cpu":
+        return refine_nn_payload_reference(q_sorted, b_sorted, b_orig,
+                                           pay_sorted, cand, exclude_self)
+    _check(q_sorted, b_sorted, b_orig, cand, None, None)
+    _check_payload(pay_sorted, b_sorted)
+    _cuda_checks("refine_nn_payload", q_sorted,
+                 [b_sorted, b_orig, pay_sorted, cand])
+    if pay_sorted.data_ptr() % 16:
+        raise ValueError("pay_sorted must be 16-byte aligned")
+    nt, w = cand.shape
+    dev = q_sorted.device
+    out_d = torch.empty((nt, CHUNK), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nt, CHUNK), dtype=torch.int32, device=dev)
+    out_p = torch.empty((nt * CHUNK, PAYLOAD_F), dtype=torch.float32,
+                        device=dev)
+    if nt == 0:
+        return out_d, out_i, out_p
+    _launch("refine_nn_payload", dev,
+            [q_sorted, b_sorted, b_orig, pay_sorted, cand, out_d, out_i,
+             out_p], [nt, w, int(bool(exclude_self))])
+    refine_nn_payload.launches += 1
+    return out_d, out_i, out_p
 
 
 def refine_knn(
@@ -485,5 +649,6 @@ def knn_moments(
 
 
 refine_nn.launches = 0
+refine_nn_payload.launches = 0
 refine_knn.launches = 0
 knn_moments.launches = 0
