@@ -43,7 +43,17 @@ Hausdorff):
     Before them, K7 (P1, P2, P3, self probe), K1's expanded mode and K6
     (stage 1 a->b and b->a) against their plain versions at those shapes.
     The ladder memo's key names the schedule, so no turn starts from a rung
-    another schedule certified.
+    another schedule certified;
+  * the fixed-cap schedule: ``PCC_NN_SCHED=fixed`` (stage 1 is K2c's
+    candidates and one K1b launch) on the 800k pair with normals in turns
+    (fixed, default, default, fixed), table and sweeps bit-identical to the
+    default's, with a per-sweep split against the counted schedule; and
+    ``PCC_NN_SCHED=fixed PCC_KNN_SCHED=fixed`` on the estimation path (K3b),
+    k-NN sets equal to the default's. Before them, K2c (800k and 2M, cap 32
+    and 512) against its plain version and a stable sort, K1b and K1c
+    against their plain version and K1 ungated, and K3b against its plain
+    version and K3 ungated, on the fixed stage-1 tables. K1c has no caller
+    in either package, so no path launches it.
 
 It prints:
 
@@ -97,11 +107,22 @@ KERNELS = {
     "count_bbox": "open_pcc_metric_tpu/ops/select_pallas.py:133",
     "adaptive_refine": "open_pcc_metric_tpu/ops/refine_adaptive.py:76",
     "refine_nn_payload": "open_pcc_metric_tpu/ops/refine_pallas.py:1156",
+    "select_candidates": "open_pcc_metric_tpu/ops/refine_pallas.py:491",
+    "refine_nn_straight": "open_pcc_metric_tpu/ops/refine_pallas.py:77",
+    "refine_knn_straight": "open_pcc_metric_tpu/ops/refine_pallas.py:209",
+    "refine_nn_fused": "open_pcc_metric_tpu/ops/refine_pallas.py:341",
 }
+# K1c has no caller in either package (grep: refine_nn_pallas_fused is
+# defined in refine_pallas.py and called nowhere else; refine_nn_fused is
+# called only by this script and the tests), so no path launches it: it
+# runs in its phases beside K1b and K1 on the fixed stage-1 tables.
+NO_PATH = ("refine_nn_fused",)
 SELECT_KERNELS = ("select_bbox", "count_bbox")
 PROLOGUE_ENV = ("PCC_NN_PROLOGUE", "PCC_KNN_PROLOGUE")
 ADAPTIVE_ENV = {"PCC_REFINE_IMPL": "adaptive"}
 PAYLOAD_ENV = {"PCC_PAYLOAD_KERNEL": "1"}
+FIXED_ENV = {"PCC_NN_SCHED": "fixed"}
+FIXED_KNN_ENV = {"PCC_NN_SCHED": "fixed", "PCC_KNN_SCHED": "fixed"}
 # The adaptive schedule's knobs at the base rung (nn_pruned_sorted's map).
 ADAPTIVE_CAP, ADAPTIVE_FT3 = max(64, CAP), max(64, FALLBACK // 4)
 # The card's published peaks (H100 SXM, NVIDIA's data sheet): float32
@@ -114,6 +135,7 @@ OPS_PER_MEMBER = 16  # K4: one count and 15 multiply/adds per k-NN member
 OPS_PER_BOUND = 17  # a box bound: 6 sub, 6 max, 3 mul, 2 add
 OPS_SELECT = OPS_PER_BOUND + 2  # K2a: mask and pack the key
 OPS_COUNT = OPS_PER_BOUND + 3  # K2b: mask, compare and add
+OPS_PICK = 1  # K2c: one compare per bound
 
 
 def _bit_equal(x, y) -> bool:
@@ -672,7 +694,10 @@ def _plain_names():
             (select, "select_bbox_reference"),
             (select, "count_bbox_reference"),
             (refine_adaptive, "adaptive_refine_reference"),
-            (refine, "refine_nn_payload_reference")]
+            (refine, "refine_nn_payload_reference"),
+            (refine, "select_candidates_reference"),
+            (refine, "refine_nn_straight_reference"),
+            (refine, "refine_knn_straight_reference")]
 
 
 def _wrappers():
@@ -684,7 +709,11 @@ def _wrappers():
             "select_bbox": select.select_bbox,
             "count_bbox": select.count_bbox,
             "adaptive_refine": refine_adaptive.adaptive_refine,
-            "refine_nn_payload": refine.refine_nn_payload}
+            "refine_nn_payload": refine.refine_nn_payload,
+            "select_candidates": refine.select_candidates,
+            "refine_nn_straight": refine.refine_nn_straight,
+            "refine_knn_straight": refine.refine_knn_straight,
+            "refine_nn_fused": refine.refine_nn_fused}
 
 
 @contextlib.contextmanager
@@ -746,11 +775,11 @@ def main_path(origin, reconst, dev):
     return a, b, result, first_s, times, launches
 
 
-def estimation_path(origin, reconst, dev, prologue="xla"):
+def estimation_path(origin, reconst, dev, prologue="xla", env=None):
     """fused_evaluate on the pair without normals, fresh clouds per run
     (cold, like bench.py's PCC_BENCH_NORMALS=1), both searches under
-    ``prologue``: one warm-up, then the median of EST_RUNS. Returns the
-    last run's clouds and result."""
+    ``prologue`` and the environment ``env``: one warm-up, then the median
+    of EST_RUNS. Returns the last run's clouds and result."""
     import torch
 
     from open_pcc_metric_tpu_torch.cloud import Cloud
@@ -765,7 +794,7 @@ def estimation_path(origin, reconst, dev, prologue="xla"):
     kwargs = dict(color_scheme="ycc", point_to_plane=True, d2_mode="pc_error")
     restore = _guarded(_plain_names())
     try:
-        with _prologue_env(prologue):
+        with _prologue_env(prologue), _env(env or {}):
             _reset_launches()
             a, b = make()
             t0 = time.perf_counter()
@@ -864,9 +893,10 @@ def _settled_rung(q, s, refine_impl="default", payload=False):
     return rungs.pop() if len(rungs) == 1 else (CAP, FALLBACK)
 
 
-def pruned_search(q, s, exclude_self, prologue="xla", refine_impl="default"):
+def pruned_search(q, s, exclude_self, prologue="xla", refine_impl="default",
+                  sched="counted"):
     """The main path's pruned sweep at the rung its ladder settled on, under
-    ``prologue`` and ``refine_impl`` (integer clouds: mxu_ok)."""
+    ``prologue``, ``refine_impl`` (integer clouds: mxu_ok) and ``sched``."""
     from open_pcc_metric_tpu_torch.ops.nn_pruned import (
         nn_pruned_sorted, unsort_nn_result)
 
@@ -875,7 +905,8 @@ def pruned_search(q, s, exclude_self, prologue="xla", refine_impl="default"):
     d_s, i_s, ov = nn_pruned_sorted(gq, gs, q.n, exclude_self=exclude_self,
                                     cap=cap, fallback_tiles=ft,
                                     prologue=prologue, refine_impl=refine_impl,
-                                    mxu_ok=q.mxu_exact() and s.mxu_exact())
+                                    mxu_ok=q.mxu_exact() and s.mxu_exact(),
+                                    sched=sched)
     if bool(ov):
         raise AssertionError(f"a sweep overflowed at rung {(cap, ft)}")
     d, i = unsort_nn_result(gq, gs, d_s, i_s)
@@ -890,15 +921,15 @@ def brute_search(q, s, exclude_self):
 
 
 def estimation_checks(a, b, origin, reconst, result, sweeps, oracle,
-                      prologue="xla"):
-    """The port's 30-NN sets of both clouds (searched under ``prologue``)
-    against the exact float64 scipy oracle (0 rows may differ), its normals
-    against float64 LAPACK normals of those sets (0.001-quantile of |dot|
-    above 0.999), and the PSNRs against a float64 evaluation with those
-    normals: D2 entries within D2_TOL, the others within PSNR_TOL. Under
-    select the k-NN sets must also equal the default prologue's bit for
-    bit. ``oracle`` caches the oracle's sets and LAPACK normals by cloud.
-    Returns the numbers."""
+                      prologue="xla", sched="counted"):
+    """The port's 30-NN sets of both clouds (searched under ``prologue``
+    and ``sched``) against the exact float64 scipy oracle (0 rows may
+    differ), its normals against float64 LAPACK normals of those sets
+    (0.001-quantile of |dot| above 0.999), and the PSNRs against a float64
+    evaluation with those normals: D2 entries within D2_TOL, the others
+    within PSNR_TOL. Under select or the fixed schedule the k-NN sets must
+    also equal the default's bit for bit. ``oracle`` caches the oracle's
+    sets and LAPACK normals by cloud. Returns the numbers."""
     import bench
     from open_pcc_metric_tpu_torch.ops.knn_pruned import knn_pruned
 
@@ -914,20 +945,22 @@ def estimation_checks(a, b, origin, reconst, result, sweeps, oracle,
         oi, lapack[name] = oracle[name]
         idx, dist = knn_pruned(c.points, c.points, c.n, c.n, k=K,
                                cap=KCAP, fallback_tiles=KFT,
-                               prologue=prologue)
+                               prologue=prologue, sched=sched)
         bad = int(np.any(idx[: c.n].cpu().numpy() != oi, axis=1).sum())
-        if prologue == "select":
+        if prologue == "select" or sched == "fixed":
             idx0, dist0 = knn_pruned(c.points, c.points, c.n, c.n, k=K,
                                      cap=KCAP, fallback_tiles=KFT,
-                                     prologue="xla")
+                                     prologue="xla", sched="counted")
             if not (_bit_equal(idx[: c.n], idx0[: c.n])
                     and _bit_equal(dist[: c.n], dist0[: c.n])):
-                raise AssertionError(f"estimation {name}: the select k-NN "
-                                     "sets differ from the default's")
+                raise AssertionError(f"estimation {name}: the {prologue} "
+                                     f"{sched} k-NN sets differ from the "
+                                     "default's")
             out[f"{name}_knn_equal_to_default"] = True
         est = c._est_normals[: c.n].double().cpu().numpy()
         q001 = float(np.quantile(np.abs((est * lapack[name]).sum(1)), 0.001))
-        print(f"estimation {name} ({prologue}): {c.n} points, {bad} k-NN rows "
+        print(f"estimation {name} ({prologue}, {sched}): {c.n} points, "
+              f"{bad} k-NN rows "
               "differ from the float64 oracle; normals |dot| 0.001-quantile "
               f"{q001:.6f} vs float64 LAPACK", flush=True)
         if bad:
@@ -941,7 +974,8 @@ def estimation_checks(a, b, origin, reconst, result, sweeps, oracle,
     deltas = _psnr_deltas(result, want)
     d2 = max(v for k, v in deltas.items() if k.startswith("d2_"))
     rest = max(v for k, v in deltas.items() if not k.startswith("d2_"))
-    print(f"estimation ({prologue}) max |dPSNR| vs float64 evaluation: D2 "
+    print(f"estimation ({prologue}, {sched}) max |dPSNR| vs float64 "
+          "evaluation: D2 "
           f"entries {d2:.3e} dB (bar {D2_TOL:g}), D1/colour/Hausdorff "
           f"{rest:.3e} dB "
           f"(bar {PSNR_TOL:g})", flush=True)
@@ -1542,6 +1576,219 @@ def float_adaptive_line(forigin, reconst, dev, evaluate, smi):
         "table_equal": True, "card": smi}), flush=True)
 
 
+def fixed_table(gq, gs, nq, cap):
+    """The fixed schedule's stage-1 inputs of one sweep: (valid_t, lb, the
+    kernel K2c's ``cap`` candidates)."""
+    from open_pcc_metric_tpu_torch.ops.grid import bbox_lower_bounds
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import tile_boxes
+    from open_pcc_metric_tpu_torch.ops.refine import select_candidates
+
+    valid_t, a_lo, a_hi = tile_boxes(gq, nq)
+    lb = bbox_lower_bounds(a_lo, a_hi, gs.bbox_lo, gs.bbox_hi)
+    return valid_t, lb, select_candidates(lb, min(cap, gs.n_chunks))
+
+
+def k2c_phases(cases):
+    """K2c against its plain version on the card, on the lb matrix of each
+    case (name, query grid, search grid, valid queries, cap): picks
+    bit-identical on every row, and equal to the stable sort's prefix
+    (``lb_order``) on every tile with a valid query. Library:
+    ``torch.sort(lb, dim=1, stable=True).indices[:, :cap]`` on the same
+    matrix. Bound: nta * ncb compares at the float32 rate against the
+    matrix read once and the picks written once."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import lb_order
+    from open_pcc_metric_tpu_torch.ops.refine import (
+        select_candidates, select_candidates_reference)
+
+    recs = []
+    for name, gq, gs, nq, cap in cases:
+        valid_t, lb, got = fixed_table(gq, gs, nq, cap)
+        cap = got.shape[1]
+        torch.cuda.synchronize()
+        want, plain_ms = _once_ms(lambda: select_candidates_reference(lb, cap))
+        if not _bit_equal(got, want):
+            raise AssertionError(f"K2c phase {name}: {int((got != want).sum())}"
+                                 " picks differ from the plain version")
+        live = valid_t.any(dim=1)
+        if not _bit_equal(got[live], lb_order(lb[live])[:, :cap]):
+            raise AssertionError(f"K2c phase {name}: a valid tile's picks are "
+                                 "not its stable order's prefix")
+        nta, ncb = lb.shape
+        bound_ms, bound_by = _bound(OPS_PICK * nta * ncb, [lb], [got])
+        rec = {
+            "phase": name, "tiles": nta, "chunks": ncb, "cap": cap,
+            "empty_tiles": int((~live).sum()), "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: select_candidates(lb, cap), 20),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": _time_ms(lambda: torch.sort(
+                lb, dim=1, stable=True).indices[:, :cap], 10),
+        }
+        print("kernel phase K2c " + json.dumps(rec), flush=True)
+        recs.append(rec)
+    return recs
+
+
+def straight_phases(cases):
+    """K1b and K1c against their plain version and K1 ungated on the card,
+    on the fixed schedule's stage-1 table of each case (name, query grid,
+    search grid, valid queries, exclude_self; cap CAP): d and id
+    bit-identical on every row, the three times printed. Returns (K1b
+    records, K1c records)."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.refine import (
+        refine_nn, refine_nn_fused, refine_nn_straight,
+        refine_nn_straight_reference)
+
+    k1b, k1c = [], []
+    for name, gq, gs, nq, ex in cases:
+        cand = fixed_table(gq, gs, nq, CAP)[2]
+        args = (gq.points, gs.points, gs.perm, cand)
+        outs = {fn.__name__: fn(*args, exclude_self=ex) for fn in (
+            refine_nn_straight, refine_nn_fused, refine_nn)}
+        torch.cuda.synchronize()
+        want, plain_ms = _once_ms(
+            lambda: refine_nn_straight_reference(*args, exclude_self=ex))
+        for fn_name, got in outs.items():
+            if not all(_bit_equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"straight phase {name}: {fn_name} "
+                                     "differs from the plain version")
+        bound_ms, bound_by = _bound(OPS_PER_PAIR * _live_pairs(cand, None),
+                                    args, list(want))
+        ms = {fn.__name__: _time_ms(lambda fn=fn: fn(*args, exclude_self=ex),
+                                    20)
+              for fn in (refine_nn_straight, refine_nn_fused, refine_nn)}
+        for label, fn_name, recs in (("K1b", "refine_nn_straight", k1b),
+                                     ("K1c", "refine_nn_fused", k1c)):
+            rec = {
+                "phase": name, "tiles": int(cand.shape[0]),
+                "slots": int(cand.shape[1]),
+                "compared": "every row, with the plain version and K1 ungated",
+                "max_abs_err": 0.0, "ms": ms[fn_name], "plain_ms": plain_ms,
+                "k1b_ms": ms["refine_nn_straight"],
+                "k1c_ms": ms["refine_nn_fused"], "k1_ms": ms["refine_nn"],
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            }
+            print(f"kernel phase {label} " + json.dumps(rec), flush=True)
+            recs.append(rec)
+    return k1b, k1c
+
+
+def knn_straight_phases(cases):
+    """K3b against its plain version and K3 ungated on the card, on the
+    fixed schedule's stage-1 table of each case (name, grid, valid queries;
+    self 30-NN, cap KCAP): d and id bit-identical to K3 on every row, and
+    to the plain version on the tiles with a valid query (K2c repeats
+    chunk 0 on the others, where the kernels keep repeated points and the
+    plain version does not)."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.refine import (
+        refine_knn, refine_knn_straight, refine_knn_straight_reference)
+
+    recs = []
+    for name, g, n in cases:
+        valid_t, _, cand = fixed_table(g, g, n, KCAP)
+        args = (g.points, g.points, g.perm, cand, K)
+        got = refine_knn_straight(*args)
+        k3 = refine_knn(*args)
+        torch.cuda.synchronize()
+        if not all(_bit_equal(x, y) for x, y in zip(got, k3)):
+            raise AssertionError(f"K3b phase {name}: differs from K3 ungated")
+        tiles = valid_t.any(dim=1).nonzero()[:, 0]
+        sub = cand[tiles].contiguous()
+        want, plain_ms = _once_ms(lambda: refine_knn_straight_reference(
+            g.points, g.points, g.perm, sub, K, tiles=tiles.to(torch.int32)))
+        if not all(_bit_equal(x[tiles], y) for x, y in zip(got, want)):
+            raise AssertionError(f"K3b phase {name}: valid tiles differ from "
+                                 "the plain version")
+        bound_ms, bound_by = _bound(OPS_PER_PAIR * _live_pairs(cand, None),
+                                    args[:4], list(got))
+        rec = {
+            "phase": name, "tiles": int(cand.shape[0]),
+            "slots": int(cand.shape[1]),
+            "compared": (f"every row with K3 ungated; the {len(tiles)} tiles "
+                         "with a valid query with the plain version"),
+            "plain_tiles": int(len(tiles)), "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: refine_knn_straight(*args), 5),
+            "k3_ms": _time_ms(lambda: refine_knn(*args), 5),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        }
+        print("kernel phase K3b " + json.dumps(rec), flush=True)
+        recs.append(rec)
+    return recs
+
+
+def fixed_sweeps(a, b, oracle):
+    """Each of the three sweeps under the fixed schedule (at the rung the
+    ladder settled on) against the counted schedule's, bit for bit on the
+    valid rows, and 0 rows off the ``oracle`` sweeps. Returns {sweep: rows
+    off the oracle}."""
+    off = {}
+    for name, q, s, ex in _sweeps(a, b):
+        i0, d0 = pruned_search(q, s, ex)
+        i1, d1 = pruned_search(q, s, ex, sched="fixed")
+        if not (_bit_equal(i0[: q.n], i1[: q.n])
+                and _bit_equal(d0[: q.n], d1[: q.n])):
+            raise AssertionError(f"fixed sweep {name} differs from the "
+                                 "counted schedule")
+        oi, od = oracle[name]
+        off[name] = int(np.sum((oi != i1[: q.n].cpu().numpy())
+                               | (od != d1[: q.n].double().cpu().numpy())))
+        if off[name]:
+            raise AssertionError(f"fixed sweep {name}: rows off the oracle")
+    return off
+
+
+def fixed_split(a, b, smi):
+    """Per sweep of the 800k pair at the settled rung: the sweep's stream
+    time under the fixed schedule with K2c, K1b and the K1 tiers replayed
+    alone, and under the counted schedule with its prologue
+    (``tile_bounds``: the lb matrix and its full stable sort), the K1 probe
+    and extension, and the K1 tiers replayed alone. The rest is the
+    difference. CUDA events, mean of 5."""
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import (
+        nn_pruned_sorted, tile_bounds)
+
+    cap, ft = _settled_rung(a, b)
+    out = {}
+    for name, q, s, ex in _sweeps(a, b):
+        gq, gs = q.get_grid(), s.get_grid()
+        rec = {}
+        for sched in ("fixed", "counted"):
+            def sweep():
+                return nn_pruned_sorted(gq, gs, q.n, exclude_self=ex, cap=cap,
+                                        fallback_tiles=ft, sched=sched)
+
+            names = ["refine_nn"] + (["select_candidates", "refine_nn_straight"]
+                                     if sched == "fixed" else [])
+            replays = _replays(names, sweep)
+            total = _time_ms(sweep, 5)
+            k1 = replays["refine_nn"]
+            if sched == "fixed":
+                parts = {
+                    "k2c_ms": _time_ms(replays["select_candidates"][0], 5),
+                    "k1b_ms": _time_ms(replays["refine_nn_straight"][0], 5),
+                    "tiers_ms": _time_ms(lambda: [f() for f in k1], 5)}
+            else:
+                parts = {
+                    "prologue_ms": _time_ms(
+                        lambda: tile_bounds(gq, gs, q.n), 5),
+                    "probe_extension_ms": _time_ms(
+                        lambda: [f() for f in k1[:2]], 5),
+                    "tiers_ms": _time_ms(lambda: [f() for f in k1[2:]], 5)}
+            rec[sched] = {"sweep_ms": total, **parts,
+                          "rest_ms": total - sum(parts.values())}
+            del replays, k1
+        out[name] = rec
+    print("800k fixed schedule split " + json.dumps(
+        {"rung": [cap, ft], "sweeps": out, "card": smi}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1602,6 +1849,20 @@ def main() -> int:
     prologue_ab("800k", [("a->b", ga, gb, a.n, False),
                          ("b->a", gb, ga, b.n, False),
                          ("self a->a", ga, ga, a.n, True)], smi)
+    # The fixed schedule's kernels at its stage-1 shapes: K2c, then K1b and
+    # K1c beside K1 ungated, then K3b beside K3 ungated.
+    k2c_recs = k2c_phases([
+        ("800k a->b", ga, gb, a.n, CAP), ("800k b->a", gb, ga, b.n, CAP),
+        ("800k self a->a", ga, ga, a.n, CAP),
+        ("800k a->b escalated cap", ga, gb, a.n, 512),
+    ])
+    k1b_recs, k1c_recs = straight_phases([
+        ("800k a->b", ga, gb, a.n, False), ("800k b->a", gb, ga, b.n, False),
+        ("800k self a->a", ga, ga, a.n, True),
+        ("800k float a->b", gf, gb, fcloud.n, False),
+    ])
+    k3b_recs = knn_straight_phases([("800k a->a", ga, a.n),
+                                    ("800k float a->a", gf, fcloud.n)])
     del a, b, fcloud, ga, gb, gf
     torch.cuda.empty_cache()
 
@@ -1684,6 +1945,32 @@ def main() -> int:
     del a, b
     torch.cuda.empty_cache()
 
+    # The fixed-cap schedule (K2c + K1b stage 1) on the 800k pair with
+    # normals, in turns with the counted default: once a sweep, so both
+    # cross sweeps every call and the self sweep in the first call only
+    # (its boundary stats are cached on the cloud).
+    def once_a_sweep(launches):
+        want_n = 2 * (RUNS + 1) + 1
+        got_n = (launches["select_candidates"], launches["refine_nn_straight"])
+        if got_n != (want_n, want_n):
+            raise AssertionError(f"the fixed path launched K2c and K1b "
+                                 f"{got_n} times, not {want_n}")
+
+    (a, b), fixed_launches, rec, table = schedule_path(
+        "the 800k fixed path", FIXED_ENV, "refine_nn_straight",
+        lambda: _pair_clouds(origin, reconst, dev), evaluate, RUNS, smi,
+        order=("on", "off", "off", "on"), check_on=once_a_sweep)
+    if "select_candidates" in rec["launches_off"]:
+        raise AssertionError("the counted schedule launched K2c")
+    same_table(table, "fixed")
+    rec["sweep_rows_off_oracle"] = fixed_sweeps(a, b, sweeps)
+    rec["sweeps_bit_identical_to_default"] = True
+    rec["max_dpsnr_vs_oracle"] = max(_psnr_deltas(table, want).values())
+    print("fixed path 800k " + json.dumps(rec), flush=True)
+    fixed_split(a, b, smi)
+    del a, b
+    torch.cuda.empty_cache()
+
     ea, eb, est_result, est_first, est_times, est_launches = estimation_path(
         origin, reconst, dev)
     est_med = statistics.median(est_times)
@@ -1712,6 +1999,26 @@ def main() -> int:
         "default_median_s": est_med,
         "launches": {k: v for k, v in sel_est_launches.items() if v},
         "checks": sel_checks, "card": smi,
+    }), flush=True)
+    del ea, eb
+    torch.cuda.empty_cache()
+    ea, eb, fx_result, fx_first, fx_times, fx_launches = estimation_path(
+        origin, reconst, dev, env=FIXED_KNN_ENV)
+    for name in ("select_candidates", "refine_nn_straight",
+                 "refine_knn_straight"):
+        if fx_launches[name] <= 0:
+            raise AssertionError(f"the fixed estimation path launched {name} "
+                                 "no time")
+    fx_checks = estimation_checks(ea, eb, origin, reconst, fx_result, sweeps,
+                                  knn_oracle, sched="fixed")
+    print("fixed estimation path 800k " + json.dumps({
+        "n_points": n_total, "env": FIXED_KNN_ENV, "first_call_s": fx_first,
+        "times_s": fx_times, "median_s": statistics.median(fx_times),
+        "mpts_per_s": n_total / statistics.median(fx_times) / 1e6,
+        "default_median_s": est_med,
+        "k3b_launches": fx_launches["refine_knn_straight"],
+        "launches": {k: v for k, v in fx_launches.items() if v},
+        "checks": fx_checks, "card": smi,
     }), flush=True)
     del ea, eb
     torch.cuda.empty_cache()
@@ -1767,6 +2074,8 @@ def main() -> int:
     ])
     k2a_recs += more_a
     k2b_recs += more_b
+    k2c_recs += k2c_phases([("2M a->b", ga, gb, a.n, CAP),
+                            ("2M self a->a", ga, ga, a.n, CAP)])
     ab_2m = prologue_ab("2M", [("a->b", ga, gb, a.n, False),
                                ("b->a", gb, ga, b.n, False),
                                ("self a->a", ga, ga, a.n, True)], smi)
@@ -1799,27 +2108,45 @@ def main() -> int:
     for name in ("jax", "open_pcc_metric_tpu"):
         if name in sys.modules:
             raise AssertionError(f"{name} was imported")
-    path_launches = {"refine_nn": launches["refine_nn"],
-                     "refine_knn": est_launches["refine_knn"],
-                     "knn_moments": est_launches["knn_moments"],
-                     "nn_brute": s_launches["nn_brute"],
-                     "select_bbox": sel_launches["select_bbox"],
-                     "count_bbox": sel_launches["count_bbox"],
-                     "adaptive_refine": ad_launches["adaptive_refine"],
-                     "refine_nn_payload": pay_launches["refine_nn_payload"]}
+    # (path, launches on its counted run) of each kernel
+    path_launches = {
+        "refine_nn": ("main path", launches["refine_nn"]),
+        "refine_knn": ("estimation path", est_launches["refine_knn"]),
+        "knn_moments": ("estimation path", est_launches["knn_moments"]),
+        "nn_brute": ("small-cloud path", s_launches["nn_brute"]),
+        "select_bbox": ("select path 800k", sel_launches["select_bbox"]),
+        "count_bbox": ("select path 800k", sel_launches["count_bbox"]),
+        "adaptive_refine": ("adaptive path 800k",
+                            ad_launches["adaptive_refine"]),
+        "refine_nn_payload": ("payload path 800k",
+                              pay_launches["refine_nn_payload"]),
+        "select_candidates": ("fixed path 800k",
+                              fixed_launches["select_candidates"]),
+        "refine_nn_straight": ("fixed path 800k",
+                               fixed_launches["refine_nn_straight"]),
+        "refine_knn_straight": ("fixed estimation path 800k",
+                                fx_launches["refine_knn_straight"]),
+        "refine_nn_fused": (None, 0),
+    }
     phase_recs = {"refine_nn": records, "refine_knn": k3_recs,
                   "knn_moments": k4_recs, "nn_brute": k5_recs,
                   "select_bbox": k2a_recs, "count_bbox": k2b_recs,
-                  "adaptive_refine": k7_recs, "refine_nn_payload": k6_recs}
+                  "adaptive_refine": k7_recs, "refine_nn_payload": k6_recs,
+                  "select_candidates": k2c_recs,
+                  "refine_nn_straight": k1b_recs,
+                  "refine_knn_straight": k3b_recs,
+                  "refine_nn_fused": k1c_recs}
     kernels = []
     for name in KERNELS:
         full = _full_phase(phase_recs[name])
+        path, n_launches = path_launches[name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"open_pcc_metric_tpu_torch/csrc/{name}.cu",
             "replaces": KERNELS[name],
-            "launches": path_launches[name],
+            "path": path,
+            "launches": n_launches,
             "max_abs_err": max(r["max_abs_err"] for r in phase_recs[name]),
             "ms": full["ms"],
             "plain_ms": full["plain_ms"],
@@ -1828,7 +2155,7 @@ def main() -> int:
             "library_ms": full.get("library_ms"),
             "phase": full["phase"],
         })
-        if kernels[-1]["launches"] <= 0:
+        if kernels[-1]["launches"] <= 0 and name not in NO_PATH:
             raise AssertionError(f"{name} was launched on no path")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,6 +13,7 @@ Padding convention (unchanged from the JAX package):
 from __future__ import annotations
 
 import dataclasses
+import os
 import typing
 
 import numpy as np
@@ -44,8 +45,12 @@ def pad_bucket(n: int, policy: str = "bucket") -> int:
     policy="bucket": multiples of ``max(_MIN_ALIGN, 2^(floor(log2 n) - 3))``
     — at most ~12.5% padding waste with a logarithmic number of shapes.
     policy="pow2": next power of two — up to 2x waste, but heterogeneous
-    sweeps collapse onto very few shapes.
+    sweeps collapse onto very few shapes. policy="auto": ``PCC_PAD_POLICY``
+    read at this call, "pow2" or else "bucket", as in the JAX package.
     """
+    if policy == "auto":
+        policy = "pow2" if os.environ.get("PCC_PAD_POLICY") == "pow2" \
+            else "bucket"
     if policy not in ("bucket", "pow2"):
         raise ValueError(f"unknown pad policy {policy!r}")
     if n <= _MIN_ALIGN:
@@ -129,10 +134,12 @@ class Cloud:
         device: typing.Union[str, torch.device, None] = None,
         dtype: torch.dtype = torch.float32,
         pad_to: typing.Optional[int] = None,
-        pad_policy: str = "bucket",
+        pad_policy: str = "auto",
     ) -> "Cloud":
         """Build a padded Cloud on ``device`` (the CUDA device when None;
-        ``resolve_device`` raises when there is none).
+        ``resolve_device`` raises when there is none), padded to ``pad_to``
+        or else to ``pad_bucket(n, pad_policy)`` (by default the
+        ``PCC_PAD_POLICY`` policy, read at this call).
 
         Padding and the float64 -> ``dtype`` cast happen on the host, so the
         device receives exactly the bits the JAX package uploads.
@@ -205,12 +212,16 @@ class Cloud:
 
         ``build``: "device" sorts on the cloud's device (``build_grid``),
         "host" sorts the float64 host points (``build_grid_host``), "auto"
-        picks host for CPU clouds and device otherwise — the JAX package's
-        default. Either grid gives the same exact NN results.
+        reads ``PCC_GRID_BUILD`` at this call as the JAX package does
+        ("host", "auto" or anything else for "device"), and "auto" picks
+        host for CPU clouds and device otherwise. Either grid is the same.
         """
         if self._grid is None:
             from .ops.grid import build_grid, build_grid_host
 
+            if build == "auto":
+                env = os.environ.get("PCC_GRID_BUILD", "auto")
+                build = env if env in ("host", "auto") else "device"
             if build == "auto":
                 build = "host" if self.device.type == "cpu" else "device"
             if build not in ("host", "device"):

@@ -14,7 +14,10 @@
 // taken over the very bounds the selection ordered. K1's expanded mode and
 // the adaptive refine K7 (adaptive_refine.cu) share the expanded-norm
 // distance (expanded), and the payload refine K6 (refine_nn_payload.cu)
-// uses offset as K1 does.
+// uses offset as K1 does. So do the fixed-cap schedule's refines K1b
+// (refine_nn_straight.cu), K1c (refine_nn_fused.cu) and K3b
+// (refine_knn_straight.cu), which must equal K1 and K3 ungated; its
+// candidate select K2c (select_candidates.cu) shares lex_less.
 #pragma once
 
 #include <cuda_runtime.h>

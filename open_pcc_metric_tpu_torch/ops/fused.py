@@ -15,13 +15,15 @@ Under point-to-plane a cloud without normals gets them estimated
 moments, ``ops/normals.py``); the estimation caches the origin's boundary
 stats on the way, so the self-NN sweep is then skipped.
 
-Two knobs pick the pruned sweeps' schedules, read at each public call
+Knobs pick the pruned sweeps' schedules, read at each public call
 (``fused_evaluate``, ``pair_stats``, ``boundary_stats``), with the same
-tables either way: ``PCC_REFINE_IMPL=adaptive`` (or ``PCC_NN_EXPANDED=1``)
-on pairs of clouds that pass ``Cloud.mxu_exact`` (``nn_pruned`` module
-docstring), and ``PCC_PAYLOAD_KERNEL=1``, under which the two cross sweeps
-of a float32 pair that needs colours or normals return the neighbours'
-points, colours and normals from K6 instead of a gather.
+tables either way: ``PCC_NN_SCHED`` (the counted or the fixed-cap stage
+1), ``PCC_REFINE_IMPL=adaptive`` (or ``PCC_NN_EXPANDED=1``) on pairs of
+clouds that pass ``Cloud.mxu_exact`` (``nn_pruned`` module docstring), and
+``PCC_PAYLOAD_KERNEL=1``, under which the two cross sweeps of a float32
+pair that needs colours or normals return the neighbours' points, colours
+and normals from K6 instead of a gather. ``PCC_NN_CAP`` and ``PCC_NN_FT``
+set the ladder's base rung when the caller gives none.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from .color import get_color_peak, transform_colors
 from .grid import CHUNK
 from .nn_pruned import (
     NN_PROLOGUE_ENV, nn_pruned_sorted, nn_pruned_sorted_payload,
-    resolve_prologue, resolve_refine_impl)
+    resolve_nn_sched, resolve_prologue, resolve_refine_impl)
 from .refine import PAYLOAD_F
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
 
@@ -51,6 +53,19 @@ def resolve_payload(payload: typing.Optional[bool] = None) -> bool:
     if payload is None:
         return os.environ.get(PAYLOAD_ENV) == "1"
     return bool(payload)
+
+
+NN_CAP_ENV, NN_FT_ENV = "PCC_NN_CAP", "PCC_NN_FT"
+
+
+def nn_base_rung(cap: typing.Optional[int] = None,
+                 fallback: typing.Optional[int] = None):
+    """The pruned sweeps' base rung: each of ``cap`` and ``fallback`` when
+    given, else ``PCC_NN_CAP`` / ``PCC_NN_FT`` read at this call (32 and
+    256 when unset), as the JAX package's ``fused_evaluate`` reads them."""
+    return (int(os.environ.get(NN_CAP_ENV, "32")) if cap is None else cap,
+            int(os.environ.get(NN_FT_ENV, "256")) if fallback is None
+            else fallback)
 
 
 def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -160,7 +175,7 @@ def _pair_stats_pruned(
     a_col_sorted=None, b_col_sorted=None, a_nrm_sorted=None,
     b_nrm_sorted=None,
     *, color_scheme, point_to_plane, d2_mode, with_boundary,
-    prune_cap, prune_fallback, prologue, refine_impl, mxu_ok, payload,
+    prune_cap, prune_fallback, prologue, refine_impl, mxu_ok, payload, sched,
 ) -> typing.Dict[str, typing.Any]:
     """Device reductions for one pair, evaluated in Morton-sorted space.
 
@@ -168,16 +183,17 @@ def _pair_stats_pruned(
     indices come back in ORIGINAL order (so colour/normal/point gathers hit
     the original arrays), and only the reference-D2 positional pairing and
     the query-side colours need a perm gather. Every sweep runs
-    ``prologue`` and ``refine_impl`` (gated by ``mxu_ok``), except that with
-    ``payload`` the cross sweeps of a float32 pair that needs colours or
-    normals run ``nn_pruned_sorted_payload`` (K6), as in the JAX package.
+    ``prologue``, ``sched`` and ``refine_impl`` (gated by ``mxu_ok``),
+    except that with ``payload`` the cross sweeps of a float32 pair that
+    needs colours or normals run ``nn_pruned_sorted_payload`` (K6), as in
+    the JAX package.
     """
     _check_normals(a_nrm, b_nrm, point_to_plane)
     dev = a_pts.device
     masks = (torch.arange(a_pts.shape[0], device=dev) < n_a,
              torch.arange(b_pts.shape[0], device=dev) < n_b)
     kw = dict(cap=prune_cap, fallback_tiles=prune_fallback, prologue=prologue,
-              refine_impl=refine_impl, mxu_ok=mxu_ok)
+              refine_impl=refine_impl, mxu_ok=mxu_ok, sched=sched)
     if (payload and (color_scheme is not None or point_to_plane)
             and a_pts.dtype == torch.float32):
 
@@ -291,22 +307,24 @@ def pair_stats(
     d2_mode: str = "reference",
     with_boundary: bool = True,
     backend: str = "pruned",
-    prune_cap: int = 32,
-    prune_fallback: int = 256,
+    prune_cap: typing.Optional[int] = None,
+    prune_fallback: typing.Optional[int] = None,
     prologue: typing.Optional[str] = None,
     a_nrm_sorted: typing.Optional[torch.Tensor] = None,
     b_nrm_sorted: typing.Optional[torch.Tensor] = None,
     refine_impl: typing.Optional[str] = None,
     mxu_ok: bool = False,
     payload: typing.Optional[bool] = None,
+    sched: typing.Optional[str] = None,
 ) -> typing.Dict[str, typing.Any]:
     """Device-side reductions for the full metric suite (tensors on the
     clouds' device). ``backend`` as ``nn.resolve_backend`` reads it: the
     brute force (K5) works in original order and ignores the grids and
     sorted colours; the pruned search adds ``nn_overflow``, which reports
     certificate overflow — the caller must re-run with a larger
-    prune_cap/prune_fallback. ``prologue`` is the pruned sweeps'
-    (``nn_pruned``), by default ``PCC_NN_PROLOGUE`` read at this call;
+    prune_cap/prune_fallback (by default ``nn_base_rung``'s).
+    ``prologue`` and ``sched`` are the pruned sweeps' (``nn_pruned``), by
+    default ``PCC_NN_PROLOGUE`` and ``PCC_NN_SCHED`` read at this call;
     ``refine_impl`` and ``payload`` (module docstring) default to
     ``resolve_refine_impl`` and ``resolve_payload`` at this call, and
     ``mxu_ok`` asserts that both clouds pass ``Cloud.mxu_exact``."""
@@ -322,6 +340,7 @@ def pair_stats(
         ga = build_grid(a_pts, n_a)
     if gb is None:
         gb = build_grid(b_pts, n_b)
+    prune_cap, prune_fallback = nn_base_rung(prune_cap, prune_fallback)
     return _pair_stats_pruned(
         a_pts, b_pts, n_a, n_b, a_col, b_col, a_nrm, b_nrm, ga, gb,
         a_col_sorted, b_col_sorted, a_nrm_sorted, b_nrm_sorted,
@@ -330,7 +349,7 @@ def pair_stats(
         prune_cap=prune_cap, prune_fallback=prune_fallback,
         prologue=resolve_prologue(prologue, NN_PROLOGUE_ENV),
         refine_impl=resolve_refine_impl(refine_impl), mxu_ok=mxu_ok,
-        payload=resolve_payload(payload),
+        payload=resolve_payload(payload), sched=resolve_nn_sched(sched),
     )
 
 
@@ -465,17 +484,20 @@ def _ladder(n_chunks: int, run, cap: int, fallback: int):
         cap, fallback = next_rung(cap, fallback, n_chunks, n_chunks)
 
 
-def boundary_stats(cloud, backend: str = "auto", prune_cap: int = 32,
-                   prune_fallback: int = 256,
+def boundary_stats(cloud, backend: str = "auto",
+                   prune_cap: typing.Optional[int] = None,
+                   prune_fallback: typing.Optional[int] = None,
                    prologue: typing.Optional[str] = None,
-                   refine_impl: typing.Optional[str] = None):
+                   refine_impl: typing.Optional[str] = None,
+                   sched: typing.Optional[str] = None):
     """Cached (min, max) intra-cloud NN distances of one cloud (device
     0-d tensors). They depend only on the cloud (reference:
     cloud_pair.py:108-109), so a sweep sharing one reference cloud computes
     the priciest NN pass once. ``backend`` as ``nn.resolve_backend`` reads
-    it; the pruned pass escalates from (prune_cap, prune_fallback) with
-    ``prologue`` and ``refine_impl``, by default ``PCC_NN_PROLOGUE`` and
-    ``resolve_refine_impl`` read at this call (the latter gated by the
+    it; the pruned pass escalates from (prune_cap, prune_fallback), by
+    default ``nn_base_rung``'s, with ``prologue``, ``sched`` and
+    ``refine_impl``, by default ``PCC_NN_PROLOGUE``, ``PCC_NN_SCHED`` and
+    ``resolve_refine_impl`` read at this call (the last gated by the
     cloud's ``mxu_exact``)."""
     if cloud._boundary_stats is not None:
         return cloud._boundary_stats
@@ -490,17 +512,18 @@ def boundary_stats(cloud, backend: str = "auto", prune_cap: int = 32,
         g = cloud.get_grid()
         prologue = resolve_prologue(prologue, NN_PROLOGUE_ENV)
         refine_impl = resolve_refine_impl(refine_impl)
+        sched = resolve_nn_sched(sched)
         mxu_ok = refine_impl != "default" and _mxu_ok(cloud)
 
         def run(cap, fallback):
             d, _, overflow = nn_pruned_sorted(
                 g, g, cloud.n, exclude_self=True, cap=cap,
                 fallback_tiles=fallback, prologue=prologue,
-                refine_impl=refine_impl, mxu_ok=mxu_ok)
+                refine_impl=refine_impl, mxu_ok=mxu_ok, sched=sched)
             return d, bool(overflow)
 
-        d, _ = _ladder(cloud.padded_size // CHUNK, run, prune_cap,
-                       prune_fallback)
+        d, _ = _ladder(cloud.padded_size // CHUNK, run,
+                       *nn_base_rung(prune_cap, prune_fallback))
     mask = cloud.valid_mask()
     sqrt_d = torch.sqrt(torch.clamp(d, min=0.0))
     cloud._boundary_stats = (_masked_min(sqrt_d, mask), _masked_max(sqrt_d, mask))
@@ -529,7 +552,8 @@ _LADDER_MEMO: dict = {}
 def fused_evaluate(
     a, b, color_scheme=None, point_to_plane=False, d2_mode="reference",
     backend: str = "auto", peak: typing.Optional[float] = None,
-    prune_cap: int = 32, prune_fallback: int = 256,
+    prune_cap: typing.Optional[int] = None,
+    prune_fallback: typing.Optional[int] = None,
 ) -> typing.Dict[str, np.float64]:
     """Full fused evaluation of a Cloud pair on the clouds' device.
 
@@ -537,18 +561,23 @@ def fused_evaluate(
     below ``nn.PRUNE_THRESHOLD`` padded rows and the pruned search at or
     above it; "brute" (aliases "pallas", "jnp") and "pruned" force one.
     ``prune_cap``/``prune_fallback`` are the base rung of the pruned
-    search's certificate ladder; an overflowing rung escalates through
-    ``next_rung`` (one synchronous overflow readback per attempt). The
-    pruned sweeps' prologue is ``PCC_NN_PROLOGUE`` and the estimation's
-    ``PCC_KNN_PROLOGUE``, both read at this call ("select" selects the
-    fused select prologue, K2a/K2b), and so are the sweeps' refine
+    search's certificate ladder (``PCC_NN_CAP`` / ``PCC_NN_FT`` read at
+    this call when not given, ``nn_base_rung``); an overflowing rung
+    escalates through ``next_rung`` (one synchronous overflow readback per
+    attempt). The pruned sweeps' prologue is ``PCC_NN_PROLOGUE`` and the
+    estimation's ``PCC_KNN_PROLOGUE``, both read at this call ("select"
+    selects the fused select prologue, K2a/K2b), and so are the stage-1
+    schedules (``PCC_NN_SCHED``, ``PCC_KNN_SCHED``) and the sweeps' refine
     schedules (``PCC_REFINE_IMPL``, ``PCC_NN_EXPANDED``,
     ``PCC_PAYLOAD_KERNEL``; module docstring). The ladder remembers its rung
-    per shape and schedule.
+    per shape and refine schedule (both stage-1 schedules overflow on the
+    same rungs).
     """
     prologue = resolve_prologue(None, NN_PROLOGUE_ENV)
     refine_impl = resolve_refine_impl(None)
     payload = resolve_payload(None)
+    sched = resolve_nn_sched(None)
+    prune_cap, prune_fallback = nn_base_rung(prune_cap, prune_fallback)
     backend = nn_ops.resolve_backend(backend,
                                      max(a.padded_size, b.padded_size))
     if a.device != b.device or a.points.dtype != b.points.dtype:
@@ -594,7 +623,7 @@ def fused_evaluate(
             backend=backend, prune_cap=cap, prune_fallback=fallback,
             prologue=prologue, a_nrm_sorted=a_nrm_sorted,
             b_nrm_sorted=b_nrm_sorted, refine_impl=refine_impl,
-            mxu_ok=mxu_ok, payload=payload, **kwargs)
+            mxu_ok=mxu_ok, payload=payload, sched=sched, **kwargs)
         if not with_boundary:
             stats["self_min"], stats["self_max"] = a._boundary_stats
         host = _to_host(stats)  # one round-trip: results + overflow

@@ -15,7 +15,18 @@ so the k-set equals every other exact backend's, ties included. With
 ``with_moments`` a second pass, ``refine.knn_moments`` (K4), sums the
 query-relative offsets of each query's k-NN set over the same candidate
 schedule: the normal estimation needs only those sums, never a (P, k, 3)
-neighbour gather.
+neighbour gather. A self-exclusive k-NN (``exclude_self``) sums them from
+a gather of its k neighbours instead, as the JAX package does.
+
+Stage 1 runs one of two schedules, chosen per call (``sched``; the public
+entry points read ``PCC_KNN_SCHED``): "counted" (the probe and the gated,
+seeded extension) when cap > 8 and the tiles fill whole 8-tile groups,
+the JAX package's conditions, else "fixed": the lb matrix, K2c's ``cap``
+candidates and one ungated, unseeded K3b launch over every tile
+(``refine.refine_knn_straight``). K2c repeats column 0 on the rows of
+tiles without a valid query, so K3b keeps repeated points there: those
+rows are discarded. The tiers and the moments pass walk the same prefixes
+on either schedule.
 
 The stage-1 candidates and counts come from one of ``nn_pruned``'s two
 prologues, chosen per call (``prologue``; the public entry points read
@@ -43,9 +54,10 @@ import torch
 
 from .grid import CHUNK, ChunkGrid, build_grid
 from .nn_pruned import (
-    KNN_PROLOGUE_ENV, cert_ub, count_under, resolve_prologue, run_prologue,
-    stable_top, tier_table, unsort_rows, uses_select)
-from .refine import MOM_CH, knn_moments, refine_knn
+    KNN_P1_ENV, KNN_PROLOGUE_ENV, cert_ub, count_under, resolve_knn_sched,
+    resolve_p1, resolve_prologue, run_prologue, stable_top, tier_table,
+    unsort_rows, uses_select)
+from .refine import MOM_CH, knn_moments, refine_knn, refine_knn_straight
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
 
 
@@ -66,6 +78,25 @@ def _unseen(cand, live, seen):
     return cand.gather(1, front), keep.sum(dim=1, dtype=torch.int32)
 
 
+def gather_moments(ga: ChunkGrid, gb: ChunkGrid, dk: torch.Tensor,
+                   ik: torch.Tensor) -> torch.Tensor:
+    """(P, MOM_CH) sums [cnt, sx, sy, sz, sxx, syy, szz, sxy, sxz, syz] of
+    the offsets from each sorted query to its k neighbours ``ik`` (original
+    ids, (P, k)), each weighted by whether its distance ``dk`` is finite,
+    in the cloud's dtype: the JAX package's gather path."""
+    pb = gb.points.shape[0]
+    inv_b = torch.empty(pb, dtype=torch.long, device=ik.device)
+    inv_b[gb.perm.long()] = torch.arange(pb, device=ik.device)
+    neigh = gb.points[inv_b[ik.long().clamp(0, pb - 1)]]  # (P, k, 3)
+    w = torch.isfinite(dk).to(gb.points.dtype)[:, :, None]
+    diffs = (neigh - ga.points[:, None, :]) * w
+    dx, dy, dz = diffs.unbind(dim=2)
+    sq = torch.stack([dx * dx, dy * dy, dz * dz, dx * dy, dx * dz, dy * dz],
+                     dim=2)
+    return torch.cat([w[:, :, 0].sum(dim=1, keepdim=True), diffs.sum(dim=1),
+                      sq.sum(dim=1)], dim=1)
+
+
 def knn_pruned_sorted(
     ga: ChunkGrid,
     gb: ChunkGrid,
@@ -75,8 +106,9 @@ def knn_pruned_sorted(
     cap: int = 32,
     fallback_tiles: int = 128,
     with_moments: bool = False,
-    p1: int = 8,
+    p1: typing.Optional[int] = None,
     prologue: str = "xla",
+    sched: str = "counted",
 ) -> typing.Tuple[torch.Tensor, ...]:
     """k-NN in Morton-sorted query order; ORIGINAL neighbour indices.
 
@@ -84,32 +116,33 @@ def knn_pruned_sorted(
     s < n_a). Returns ``(dist_sq (P, k), idx (P, k) int32, overflow 0-d
     bool tensor)``, ascending by distance; with ``with_moments`` a fourth
     output, (P, MOM_CH) sums [cnt, sx, sy, sz, sxx, syy, szz, sxy, sxz,
-    syz] of the offsets from each query to its k neighbours (of a
-    self-inclusive k-NN, the estimation's: not with ``exclude_self``).
+    syz] of the offsets from each query to its k neighbours (K4's, or with
+    ``exclude_self`` ``gather_moments``).
 
-    Schedule: a probe of the ``p1`` lowest-lb chunks of every tile, a
-    certificate count from the k-th distance, an in-place extension of
-    each tile to min(count, cap) chunks seeded from the probe (gated per
-    tile), then tier A (the top ``fallback_tiles`` tiles by count, widened
-    to cap2a = min(max(2 cap, 128), ncb)) and tier B (the worst of those,
-    widened to cap2b = min(max(8 cap, 512, ncb // 4), ncb)), both seeded,
-    gated and read in place through global tile ids. With cap <= 8 stage 1
-    is one refine of all ``cap`` chunks. The moments pass walks the same
-    prefixes: min(count, cap) chunks of every tile, then each tier's
-    extension (from zero over the tier's prefix in select mode), with the
-    count taken from the final k-th distances. ``prologue`` ("xla" or
-    "select") as in the module docstring.
+    Schedule (``sched="counted"``, cap > 8 and nta % 8 == 0): a probe of
+    the ``p1`` lowest-lb chunks of every tile (``PCC_KNN_P1`` read at this
+    call when ``p1`` is None, else 8), a certificate count from the k-th
+    distance, an in-place extension of each tile to min(count, cap) chunks
+    seeded from the probe (gated per tile), then tier A (the top
+    ``fallback_tiles`` tiles by count, widened to cap2a = min(max(2 cap,
+    128), ncb)) and tier B (the worst of those, widened to cap2b =
+    min(max(8 cap, 512, ncb // 4), ncb)), both seeded, gated and read in
+    place through global tile ids. Otherwise stage 1 is K2c's ``cap``
+    candidates and one K3b refine of all of them. The moments pass walks
+    the same prefixes: min(count, cap) chunks of every tile, then each
+    tier's extension (from zero over the tier's prefix in select mode),
+    with the count taken from the final k-th distances. ``prologue``
+    ("xla" or "select") as in the module docstring.
     """
-    if with_moments and exclude_self:
-        raise ValueError("with_moments sums a self-inclusive k-NN set; "
-                         "exclude_self is not supported with it")
     n_a = int(n_a)
     nta = ga.points.shape[0] // CHUNK
     ncb = gb.n_chunks
     cap = min(cap, ncb)
+    sched = resolve_knn_sched(sched)
+    counted = sched == "counted" and cap > 8 and nta % 8 == 0
     pro = run_prologue(ga, gb, n_a, cap,
-                       uses_select(prologue, cap, ga.points.dtype)
-                       and nta % 8 == 0)
+                       uses_select(prologue, cap, ga.points.dtype, sched)
+                       and nta % 8 == 0, fixed=not counted)
     valid_t, order = pro.valid_t, pro.order
 
     def refine(cand, **kw):
@@ -119,15 +152,16 @@ def knn_pruned_sorted(
     def kth_ub(dk, tvalid):
         return cert_ub(dk[:, :, k - 1], tvalid)
 
-    if cap > 8:
-        p1 = max(1, min(p1, cap - 1))
+    if counted:
+        p1 = max(1, min(resolve_p1(p1, KNN_P1_ENV), cap - 1))
         d1, i1 = refine(order[:, :p1])
         counts1 = pro.counts(kth_ub(d1, valid_t))
         ncand2 = torch.clamp(counts1 - p1, 0, cap - p1).to(torch.int32)
         dk, ik = refine(order[:, p1:cap], ncand=ncand2, init=(d1, i1))
         refined1 = p1 + ncand2  # each tile's refined prefix of ``order``
     else:
-        dk, ik = refine(order[:, :cap])
+        dk, ik = refine_knn_straight(ga.points, gb.points, gb.perm, order, k,
+                                     exclude_self=exclude_self)
 
     # ---- stage-1 certificate on the k-th distance
     ub_eff = kth_ub(dk, valid_t)
@@ -197,6 +231,9 @@ def knn_pruned_sorted(
     p = nta * CHUNK
     if not with_moments:
         return dk.reshape(p, k), ik.reshape(p, k), overflow
+    if exclude_self:
+        dk, ik = dk.reshape(p, k), ik.reshape(p, k)
+        return dk, ik, overflow, gather_moments(ga, gb, dk, ik)
 
     # ---- moment sums of the exact k-NN sets. Members are the pairs
     # lexicographically <= the k-buffer's last slot, which is the k-set
@@ -252,15 +289,19 @@ def knn_pruned(
     cap: int = 64,
     fallback_tiles: int = 256,
     prologue: typing.Optional[str] = None,
+    sched: typing.Optional[str] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """Exact pruned k-NN in ORIGINAL order with automatic escalation.
 
     Returns ``(idx int32 (Pa, k), dist_sq (Pa, k))`` ascending by distance.
-    ``prologue`` defaults to ``PCC_KNN_PROLOGUE``, read at this call.
+    ``prologue`` and ``sched`` default to ``PCC_KNN_PROLOGUE`` and
+    ``PCC_KNN_SCHED``, read at this call.
     """
     prologue = resolve_prologue(prologue, KNN_PROLOGUE_ENV)
+    sched = resolve_knn_sched(sched)
     nta = a_points.shape[0] // CHUNK
     ncb = b_points.shape[0] // CHUNK
+    # The JAX package's key: both schedules overflow on the same rungs.
     key = (a_points.shape[0], b_points.shape[0], k, exclude_self)
     cap, fallback_tiles = ladder_lookup(
         _ESCALATION_MEMO, key, (cap, fallback_tiles))
@@ -270,7 +311,7 @@ def knn_pruned(
     while True:
         dk, ik, overflow = knn_pruned_sorted(
             ga, gb, n_a, k, exclude_self=exclude_self, cap=cap,
-            fallback_tiles=fallback_tiles, prologue=prologue)
+            fallback_tiles=fallback_tiles, prologue=prologue, sched=sched)
         # Exact iff the certificate passed or stage 1 refined every chunk.
         if not bool(overflow) or cap >= ncb:
             ladder_store(_ESCALATION_MEMO, key, (cap, fallback_tiles))

@@ -16,7 +16,8 @@ then proves itself exact with a sound certificate:
 
 Tiles that fail are re-refined in two wider tiers; only if those fail too
 does the call report ``overflow`` and the caller escalate — exactness is
-never silently lost. Every refine goes through ``refine.refine_nn`` (K1).
+never silently lost. Every refine goes through ``refine.refine_nn`` (K1),
+except the fixed schedule's stage 1 (K1b, below).
 
 Two prologues produce the stage-1 candidates and counts, chosen per call
 (``prologue``; the public entry points read ``PCC_NN_PROLOGUE``, where
@@ -36,6 +37,19 @@ Two prologues produce the stage-1 candidates and counts, chosen per call
     the current rows (stage 1's rounded order shares no usable prefix with
     it). Results equal the default's bit for bit; tier choice and
     ``overflow`` follow the JAX package's select mode.
+
+Two stage-1 schedules, chosen per call (``sched``; the public entry
+points read ``PCC_NN_SCHED``, where "counted", the default, counts and any
+other value means "fixed", as in the JAX package):
+
+  * "counted" (cap > 8): the probe, the certificate count and the gated,
+    seeded extension below;
+  * "fixed" (and any cap <= 8): the lb matrix, K2c's ``cap`` candidates
+    (``refine.select_candidates``) and one ungated, unseeded K1b launch
+    (``refine.refine_nn_straight``) over every tile. K2c repeats column 0
+    on the all-+inf rows of tiles without a valid query; their results are
+    discarded. The tiers, the counts and ``overflow`` are the counted
+    schedule's, and so are the results.
 
 Two more schedules, the JAX package's opt-in ones, give the same results
 on valid rows:
@@ -60,7 +74,9 @@ import typing
 import torch
 
 from .grid import CHUNK, ChunkGrid, bbox_lower_bounds, build_grid
-from .refine import PAYLOAD_F, refine_nn, refine_nn_payload
+from .refine import (
+    PAYLOAD_F, refine_nn, refine_nn_payload, refine_nn_straight,
+    select_candidates)
 from .refine_adaptive import adaptive_refine, pack_candidates, pack_queries
 from .select import count_bbox, select_bbox
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
@@ -71,6 +87,40 @@ KNN_PROLOGUE_ENV = "PCC_KNN_PROLOGUE"
 REFINE_IMPLS = ("default", "adaptive", "expanded")
 REFINE_IMPL_ENV = "PCC_REFINE_IMPL"
 NN_EXPANDED_ENV = "PCC_NN_EXPANDED"
+SCHEDS = ("counted", "fixed")
+NN_SCHED_ENV = "PCC_NN_SCHED"
+KNN_SCHED_ENV = "PCC_KNN_SCHED"
+NN_P1_ENV = "PCC_NN_P1"
+KNN_P1_ENV = "PCC_KNN_P1"
+
+
+def resolve_sched(sched: typing.Optional[str], env: str) -> str:
+    """The stage-1 schedule a call runs: ``sched`` when given, else read
+    from the environment variable ``env`` at this call ("counted" when it
+    is unset or "counted", "fixed" for any other value, as in the JAX
+    package)."""
+    if sched is None:
+        return ("counted" if os.environ.get(env, "counted") == "counted"
+                else "fixed")
+    if sched not in SCHEDS:
+        raise ValueError(f"unknown schedule {sched!r}; one of {SCHEDS}")
+    return sched
+
+
+def resolve_nn_sched(sched: typing.Optional[str] = None) -> str:
+    """``resolve_sched`` of the 1-NN searches (``PCC_NN_SCHED``)."""
+    return resolve_sched(sched, NN_SCHED_ENV)
+
+
+def resolve_knn_sched(sched: typing.Optional[str] = None) -> str:
+    """``resolve_sched`` of the k-NN searches (``PCC_KNN_SCHED``)."""
+    return resolve_sched(sched, KNN_SCHED_ENV)
+
+
+def resolve_p1(p1: typing.Optional[int], env: str) -> int:
+    """The counted schedule's probe width: ``p1`` when given, else the
+    environment variable ``env`` read at this call (8 when unset)."""
+    return int(os.environ.get(env, "8")) if p1 is None else int(p1)
 
 
 def resolve_refine_impl(refine_impl: typing.Optional[str] = None) -> str:
@@ -163,9 +213,16 @@ class Prologue(typing.NamedTuple):
 
 
 def run_prologue(ga: ChunkGrid, gb: ChunkGrid, n_a: int, cap: int,
-                 select: bool) -> Prologue:
-    """The default prologue (``tile_bounds``, counts over the lb matrix)
-    or, with ``select``, K2a's ``cap`` candidates and K2b's counts."""
+                 select: bool, fixed: bool = False) -> Prologue:
+    """The default prologue (``tile_bounds``, counts over the lb matrix);
+    with ``select``, K2a's ``cap`` candidates and K2b's counts; with
+    ``fixed`` (the fixed schedule), the lb matrix, its counts and K2c's
+    ``cap`` candidates in place of the full sort."""
+    if fixed:
+        valid_t, a_lo, a_hi = tile_boxes(ga, n_a)
+        lb = bbox_lower_bounds(a_lo, a_hi, gb.bbox_lo, gb.bbox_hi)
+        return Prologue(valid_t, select_candidates(lb, cap),
+                        lambda ub_eff: count_under(lb, ub_eff), lb, None)
     if not select:
         valid_t, lb, order = tile_bounds(ga, gb, n_a)
         return Prologue(valid_t, order,
@@ -176,22 +233,35 @@ def run_prologue(ga: ChunkGrid, gb: ChunkGrid, n_a: int, cap: int,
         a_lo, a_hi, gb.bbox_lo, gb.bbox_hi, ub_eff), None, (a_lo, a_hi))
 
 
-def uses_select(prologue: str, cap: int, dtype: torch.dtype) -> bool:
+def uses_select(prologue: str, cap: int, dtype: torch.dtype,
+                sched: str = "counted") -> bool:
     """Whether a search runs the select prologue: asked for, on the counted
     schedule (cap > 8) of a float32 cloud, as in the JAX package."""
     if prologue not in PROLOGUES:
         raise ValueError(f"unknown prologue {prologue!r}; one of {PROLOGUES}")
-    return prologue == "select" and cap > 8 and dtype == torch.float32
+    return (prologue == "select" and sched == "counted" and cap > 8
+            and dtype == torch.float32)
 
 
 def tier_table(pro: Prologue, gb: ChunkGrid, tiles: torch.Tensor):
     """(lb rows, lb-ascending order rows) of the compacted ``tiles``: rows
-    of the matrix by default, their true bounds recomputed and sorted in
-    select mode."""
-    if not pro.select:
-        return pro.lb[tiles], pro.order[tiles]
-    a_lo, a_hi = pro.boxes
-    olb = bbox_lower_bounds(a_lo[tiles], a_hi[tiles], gb.bbox_lo, gb.bbox_hi)
+    of the matrix and of its full sort by default; the matrix rows sorted
+    when stage 1 kept only ``cap`` candidates (the fixed schedule); their
+    true bounds recomputed and sorted in select mode.
+
+    On the fixed schedule the first ``cap`` columns of a sorted row equal
+    K2c's picks on every tile with a valid query (its bounds are finite,
+    and K2c picks a finite row's stable ascending prefix), so the tiers may
+    skip stage 1's refined prefix there too. Tiles without a valid query
+    count 0 and refine no chunk."""
+    if pro.select:
+        a_lo, a_hi = pro.boxes
+        olb = bbox_lower_bounds(a_lo[tiles], a_hi[tiles], gb.bbox_lo,
+                                gb.bbox_hi)
+    else:
+        olb = pro.lb[tiles]
+        if pro.order.shape[1] == olb.shape[1]:
+            return olb, pro.order[tiles]
     return olb, lb_order(olb)
 
 
@@ -202,10 +272,11 @@ def nn_pruned_sorted(
     exclude_self: bool = False,
     cap: int = 32,
     fallback_tiles: int = 128,
-    p1: int = 8,
+    p1: typing.Optional[int] = None,
     prologue: str = "xla",
     refine_impl: str = "default",
     mxu_ok: bool = False,
+    sched: str = "counted",
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """1-NN in Morton-sorted query order.
 
@@ -214,21 +285,25 @@ def nn_pruned_sorted(
     overflow 0-d bool tensor)``. Sentinel query rows return meaningless
     (finite) distances — callers mask by row < n_a.
 
-    Schedule (the JAX package's default): a probe of the ``p1`` lowest-lb
-    chunks of every tile, a certificate count from its ub, an in-place
-    extension of each tile to min(count, cap) chunks seeded from the probe
-    (gated per tile), then tier A (the top ``fallback_tiles`` tiles by
-    count, widened to cap2a) and tier B (the worst of those, widened to
-    cap2b), both seeded and gated. With cap <= 8 stage 1 is one refine of
-    all ``cap`` chunks. ``prologue`` ("xla" or "select") picks where the
-    stage-1 candidates and counts come from (module docstring).
+    Schedule (the JAX package's default, ``sched="counted"``): a probe of
+    the ``p1`` lowest-lb chunks of every tile (``PCC_NN_P1`` read at this
+    call when ``p1`` is None, else 8), a certificate count from its ub, an
+    in-place extension of each tile to min(count, cap) chunks seeded from
+    the probe (gated per tile), then tier A (the top ``fallback_tiles``
+    tiles by count, widened to cap2a) and tier B (the worst of those,
+    widened to cap2b), both seeded and gated. With ``sched="fixed"`` or
+    cap <= 8 stage 1 is K2c's ``cap`` candidates and one K1b refine of all
+    of them (module docstring). ``prologue`` ("xla" or "select") picks
+    where the counted schedule's stage-1 candidates and counts come from.
 
     ``mxu_ok`` asserts that both clouds pass ``Cloud.mxu_exact``. Only then
     does ``refine_impl="adaptive"`` run ``nn_pruned_adaptive_sorted`` (the
     rung maps to cap max(64, cap) and ft3 max(64, fallback_tiles // 4), as
     in the JAX package; it keeps its own probe width and the bound-matrix
-    prologue) and ``refine_impl="expanded"`` K1's expanded-norm mode.
-    Results are bit-identical either way on valid rows.
+    prologue) and ``refine_impl="expanded"`` K1's expanded-norm mode (in
+    the tiers only on the fixed schedule: K1b, like the JAX package's
+    straight kernel, has the difference form alone). Results are
+    bit-identical either way on valid rows.
     """
     refine_impl = resolve_refine_impl(refine_impl)
     if refine_impl == "adaptive" and mxu_ok:
@@ -239,22 +314,28 @@ def nn_pruned_sorted(
     nta = ga.points.shape[0] // CHUNK
     ncb = gb.n_chunks
     cap = min(cap, ncb)
+    sched = resolve_nn_sched(sched)
+    counted = sched == "counted" and cap > 8
     pro = run_prologue(ga, gb, n_a, cap,
-                       uses_select(prologue, cap, ga.points.dtype))
+                       uses_select(prologue, cap, ga.points.dtype, sched),
+                       fixed=not counted)
     valid_t, order = pro.valid_t, pro.order
 
     def refine(cand, **kw):
         return refine_nn(ga.points, gb.points, gb.perm, cand.contiguous(),
                          exclude_self=exclude_self, expanded=expanded, **kw)
 
-    if cap > 8:
-        p1 = max(1, min(p1, cap - 1))
+    if counted:
+        p1 = max(1, min(resolve_p1(p1, NN_P1_ENV), cap - 1))
         d1, i1 = refine(order[:, :p1])
         counts1 = pro.counts(cert_ub(d1, valid_t))
         ncand2 = torch.clamp(counts1 - p1, 0, cap - p1).to(torch.int32)
         dmin, gidx = refine(order[:, p1:cap], ncand=ncand2, init=(d1, i1))
     else:
-        dmin, gidx = refine(order[:, :cap])
+        # One launch over every tile: the JAX package runs its straight
+        # kernel on the tiles that do not fill an 8-tile group only.
+        dmin, gidx = refine_nn_straight(ga.points, gb.points, gb.perm, order,
+                                        exclude_self=exclude_self)
 
     # ---- stage-1 exactness certificate
     ub_eff = cert_ub(dmin, valid_t)
@@ -452,21 +533,23 @@ def nn_pruned_with_grids(
     cap: int = 32,
     fallback_tiles: int = 128,
     prologue: typing.Optional[str] = None,
+    sched: typing.Optional[str] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """Pruned 1-NN over prebuilt grids, ORIGINAL order, with escalation.
 
     Returns ``(idx int32 (Pa,), dist_sq (Pa,))``. Building the grids once
     per cloud (``Cloud.get_grid``) shares the Morton sort across every NN
-    pass of an evaluation. ``prologue`` defaults to ``PCC_NN_PROLOGUE``,
-    read at this call.
+    pass of an evaluation. ``prologue`` and ``sched`` default to
+    ``PCC_NN_PROLOGUE`` and ``PCC_NN_SCHED``, read at this call.
     """
     nta = ga.points.shape[0] // CHUNK
     ncb = gb.n_chunks
     prologue = resolve_prologue(prologue, NN_PROLOGUE_ENV)
+    sched = resolve_nn_sched(sched)
     while True:
         d_s, i_s, overflow = nn_pruned_sorted(
             ga, gb, n_a, exclude_self=exclude_self, cap=cap,
-            fallback_tiles=fallback_tiles, prologue=prologue)
+            fallback_tiles=fallback_tiles, prologue=prologue, sched=sched)
         # Exact iff the certificate passed, or stage 1 refined every chunk.
         if not bool(overflow) or cap >= ncb:
             d, idx = unsort_nn_result(ga, gb, d_s, i_s)
@@ -488,6 +571,7 @@ def nn_pruned(
     cap: int = 32,
     fallback_tiles: int = 128,
     prologue: typing.Optional[str] = None,
+    sched: typing.Optional[str] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """Exact pruned 1-NN in ORIGINAL row order with automatic escalation.
 
@@ -495,12 +579,14 @@ def nn_pruned(
     the search runs over ``a`` itself (``b_points`` is not read). An
     overflowing rung escalates through ``next_rung`` until the certificate
     passes or stage 1 covers every search chunk; the rung that worked is
-    remembered per problem shape. ``prologue`` defaults to
-    ``PCC_NN_PROLOGUE``, read at this call.
+    remembered per problem shape. ``prologue`` and ``sched``
+    default to ``PCC_NN_PROLOGUE`` and ``PCC_NN_SCHED``, read at this call.
     """
     prologue = resolve_prologue(prologue, NN_PROLOGUE_ENV)
+    sched = resolve_nn_sched(sched)
     nta = a_points.shape[0] // CHUNK
     ncb = b_points.shape[0] // CHUNK
+    # The JAX package's key: both schedules overflow on the same rungs.
     key = (a_points.shape[0], b_points.shape[0], exclude_self)
     cap, fallback_tiles = ladder_lookup(
         _ESCALATION_MEMO, key, (cap, fallback_tiles))
@@ -509,7 +595,7 @@ def nn_pruned(
     while True:
         d_s, i_s, overflow = nn_pruned_sorted(
             ga, gb, int(n_a), exclude_self=exclude_self, cap=cap,
-            fallback_tiles=fallback_tiles, prologue=prologue)
+            fallback_tiles=fallback_tiles, prologue=prologue, sched=sched)
         if not bool(overflow) or cap >= ncb:
             ladder_store(_ESCALATION_MEMO, key, (cap, fallback_tiles))
             d, idx = unsort_nn_result(ga, gb, d_s, i_s)

@@ -15,6 +15,7 @@ brute-force k-NN and a neighbour gather.
 """
 from __future__ import annotations
 
+import os
 import typing
 
 import torch
@@ -127,9 +128,9 @@ def estimate_normals(
 
 
 def estimation_core(g, n: int, k: int, cap: int, fallback_tiles: int,
-                    prologue: str = "xla"):
+                    prologue: str = "xla", sched: str = "counted"):
     """Estimation over a prebuilt grid, one certificate rung, with the
-    pruned k-NN's ``prologue``.
+    pruned k-NN's ``prologue`` and ``sched``.
 
     Normals come straight from the in-kernel moment sums; only the (P, 3)
     normals are unsorted. The k-NN includes each point itself, so slot 1 is
@@ -144,7 +145,7 @@ def estimation_core(g, n: int, k: int, cap: int, fallback_tiles: int,
 
     dk, _, overflow, mom = knn_pruned_sorted(
         g, g, n, k, cap=cap, fallback_tiles=fallback_tiles, with_moments=True,
-        prologue=prologue)
+        prologue=prologue, sched=sched)
     valid = torch.arange(g.perm.shape[0], device=dk.device) < n
     d1 = torch.sqrt(torch.clamp(dk[:, min(k - 1, 1)], min=0.0))
     mn = torch.where(valid, d1, torch.inf).amin()
@@ -154,39 +155,57 @@ def estimation_core(g, n: int, k: int, cap: int, fallback_tiles: int,
 
 # Certified (cap, fallback_tiles) rung per (padded size, k): same-shaped
 # clouds of a sweep skip the rungs that already failed; ladder_lookup
-# retries the base rung now and then.
+# retries the base rung now and then. Both k-NN schedules refine every
+# chunk a certified tile needs and all ``cap`` of the others, so they
+# overflow on the same rungs and share it.
 _LADDER_MEMO: dict = {}
+KNN_CAP_ENV, KNN_FT_ENV = "PCC_KNN_CAP", "PCC_KNN_FT"
 
 
-def estimate_normals_cloud(cloud, k: int = DEFAULT_KNN, cap: int = 64,
-                           fallback_tiles: int = 256,
-                           prologue: typing.Optional[str] = None
+def knn_base_rung(cap: typing.Optional[int] = None,
+                  fallback_tiles: typing.Optional[int] = None):
+    """The estimation ladder's base rung: each of ``cap`` and
+    ``fallback_tiles`` when given, else ``PCC_KNN_CAP`` / ``PCC_KNN_FT``
+    read at this call (64 and 256 when unset)."""
+    return (int(os.environ.get(KNN_CAP_ENV, "64")) if cap is None else cap,
+            int(os.environ.get(KNN_FT_ENV, "256")) if fallback_tiles is None
+            else fallback_tiles)
+
+
+def estimate_normals_cloud(cloud, k: int = DEFAULT_KNN,
+                           cap: typing.Optional[int] = None,
+                           fallback_tiles: typing.Optional[int] = None,
+                           prologue: typing.Optional[str] = None,
+                           sched: typing.Optional[str] = None
                            ) -> torch.Tensor:
     """Estimate normals reusing the Cloud's cached Morton grid.
 
-    ``(cap, fallback_tiles)`` is the base rung of the certificate ladder.
-    Small clouds take the brute-force k-NN; so do clouds with fewer than k
-    valid points, whose moments would count sentinel rows into the k-set
-    where the brute path masks them (FLANN's "fewer neighbours"). The
-    boundary stats that fall out of the pruned pass are cached on the
-    cloud when none are set. ``prologue`` is the pruned k-NN's, by default
-    ``PCC_KNN_PROLOGUE`` read at this call.
+    ``(cap, fallback_tiles)`` is the base rung of the certificate ladder
+    (``knn_base_rung``). Small clouds take the brute-force k-NN; so do
+    clouds with fewer than k valid points, whose moments would count
+    sentinel rows into the k-set where the brute path masks them (FLANN's
+    "fewer neighbours"). The boundary stats that fall out of the pruned
+    pass are cached on the cloud when none are set. ``prologue`` and
+    ``sched`` are the pruned k-NN's, by default ``PCC_KNN_PROLOGUE`` and
+    ``PCC_KNN_SCHED`` read at this call.
     """
     p = cloud.padded_size
     n = int(cloud.n)
     if p < _PRUNE_THRESHOLD or n < k:
         return estimate_normals(cloud.points, k=k, n_valid=n)
-    from .nn_pruned import KNN_PROLOGUE_ENV, resolve_prologue
+    from .nn_pruned import (
+        KNN_PROLOGUE_ENV, resolve_knn_sched, resolve_prologue)
 
     prologue = resolve_prologue(prologue, KNN_PROLOGUE_ENV)
+    sched = resolve_knn_sched(sched)
     g = cloud.get_grid()
     ncb = g.n_chunks
     memo_key = (p, k)
     cap, fallback_tiles = ladder_lookup(_LADDER_MEMO, memo_key,
-                                        (cap, fallback_tiles))
+                                        knn_base_rung(cap, fallback_tiles))
     while True:
         nrm, mn, mx, overflow = estimation_core(g, n, k, cap, fallback_tiles,
-                                                prologue)
+                                                prologue, sched)
         # Exact iff certified or stage 1 refined every chunk.
         if not bool(overflow) or cap >= ncb:
             ladder_store(_LADDER_MEMO, memo_key, (cap, fallback_tiles))

@@ -1,5 +1,5 @@
-"""The refine kernels: K1 (1-NN), K6 (1-NN with payload), K3 (k-NN) and K4
-(k-NN moment sums).
+"""The refine kernels: K1 (1-NN), K6 (1-NN with payload), K3 (k-NN), K4
+(k-NN moment sums), and the fixed-cap schedules' K2c, K1b, K1c and K3b.
 
 Each refines 256-query tiles over candidate chunks of a Morton grid:
 
@@ -19,6 +19,21 @@ Each refines 256-query tiles over candidate chunks of a Morton grid:
   * ``knn_moments`` (K4) sums the query-relative offsets of each query's
     exact k-NN set: the normals come from these sums. Kernel
     ``csrc/knn_moments.cu``, the port of ``moments_pallas_t``.
+
+The fixed-cap schedules' stage 1 (``nn_pruned``, ``knn_pruned``) runs:
+
+  * ``select_candidates`` (K2c): each row's ``cap`` smallest entries of
+    the (nta, ncb) lower-bound matrix. Kernel ``csrc/select_candidates.cu``,
+    the port of ``select_candidates_pallas``.
+  * ``refine_nn_straight`` (K1b): K1 without gate or seed, g chunks a
+    step. Kernel ``csrc/refine_nn_straight.cu``, the port of
+    ``refine_nn_pallas``. ``refine_nn_fused`` (K1c) computes the same with
+    double-buffered asynchronous chunk copies; no schedule calls it.
+    Kernel ``csrc/refine_nn_fused.cu``, the port of
+    ``refine_nn_pallas_fused``.
+  * ``refine_knn_straight`` (K3b): K3 without gate or seed, merging a
+    chunk only where it can change a buffer. Kernel
+    ``csrc/refine_knn_straight.cu``, the port of ``refine_knn_pallas``.
 
 On CUDA tensors each wrapper launches its hand-written kernel on the
 current stream (or raises); on CPU tensors it runs its plain PyTorch
@@ -418,6 +433,78 @@ def knn_moments_reference(
     return out
 
 
+# ------------------------------------------------- K2c, K1b, K1c, K3b
+
+
+def select_candidates_reference(lb: torch.Tensor, cap: int) -> torch.Tensor:
+    """Plain PyTorch K2c, on any device and float dtype.
+
+    Returns (nta, cap) int32: what ``cap`` rounds of (the lowest column
+    among the row's minima, then mask it to +inf) pick from each row of
+    the (nta, ncb) matrix ``lb`` (no NaN), as the JAX package's
+    ``select_candidates_pallas`` does. In closed form: the row's stable
+    ascending order for its first min(#finite, cap) picks, then column 0,
+    the lowest column once every entry left is +inf (so a row of a tile
+    without a valid query, all +inf, gives 0, 0, ...).
+    """
+    _check_select(lb, cap)
+    nta, ncb = lb.shape
+    order = torch.sort(lb, dim=1, stable=True).indices[:, :cap]
+    out = torch.zeros((nta, cap), dtype=torch.int32, device=lb.device)
+    out[:, :order.shape[1]] = order.to(torch.int32)
+    n_finite = (lb < torch.inf).sum(dim=1, keepdim=True)
+    pos = torch.arange(cap, device=lb.device)
+    return torch.where(pos < n_finite, out, 0)
+
+
+def _check_select(lb, cap):
+    if lb.ndim != 2 or not lb.is_floating_point():
+        raise ValueError(f"lb must be a float (nta, ncb) matrix; got "
+                         f"{tuple(lb.shape)} {lb.dtype}")
+    if cap < 1:
+        raise ValueError(f"cap must be at least 1, got {cap}")
+
+
+def refine_nn_straight_reference(
+    q_sorted: torch.Tensor,
+    b_sorted: torch.Tensor,
+    b_orig: torch.Tensor,
+    cand: torch.Tensor,
+    tiles: Opt = None,
+    exclude_self: bool = False,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K1b and K1c: ``refine_nn_reference`` over every slot
+    of ``cand``, without gate or seed (the JAX package's
+    ``refine_nn_pallas``)."""
+    return refine_nn_reference(q_sorted, b_sorted, b_orig, cand, tiles,
+                               exclude_self=exclude_self)
+
+
+def refine_knn_straight_reference(
+    q_sorted: torch.Tensor,
+    b_sorted: torch.Tensor,
+    b_orig: torch.Tensor,
+    cand: torch.Tensor,
+    k: int,
+    tiles: Opt = None,
+    exclude_self: bool = False,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K3b: ``refine_knn_reference`` over every slot of
+    ``cand``, without gate or seed (the JAX package's
+    ``refine_knn_pallas``). Rows must not repeat a chunk."""
+    return refine_knn_reference(q_sorted, b_sorted, b_orig, cand, k, tiles,
+                                exclude_self=exclude_self)
+
+
+def chunks_per_step(w: int) -> int:
+    """K1b's chunks a step: 8, or the largest power of two dividing ``w``
+    (the JAX package's ``_nn_group``)."""
+    g = 8
+    while w % g:
+        g //= 2
+    return g
+
+
 # ---------------------------------------------------------------- launches
 
 # name -> (C entry, number of pointer arguments, number of int arguments)
@@ -431,6 +518,10 @@ _ENTRIES = {
     "nn_brute": ("pcc_nn_brute", 6, 5),  # K5, wrapped by ops/nn.nn_argmin
     "select_bbox": ("pcc_select_bbox", 6, 4),  # K2a, ops/select.select_bbox
     "count_bbox": ("pcc_count_bbox", 6, 3),  # K2b, ops/select.count_bbox
+    "select_candidates": ("pcc_select_candidates", 2, 3),
+    "refine_nn_straight": ("pcc_refine_nn_straight", 7, 4),
+    "refine_nn_fused": ("pcc_refine_nn_fused", 7, 3),
+    "refine_knn_straight": ("pcc_refine_knn_straight", 7, 4),
 }
 
 
@@ -648,7 +739,130 @@ def knn_moments(
     return out
 
 
+def select_candidates(lb: torch.Tensor, cap: int) -> torch.Tensor:
+    """K2c (see ``select_candidates_reference`` for the contract).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel on
+    the current stream, or raise: float32 and contiguous only. Each launch
+    adds one to ``select_candidates.launches``.
+    """
+    if lb.device.type == "cpu":
+        return select_candidates_reference(lb, cap)
+    _check_select(lb, cap)
+    _cuda_checks("select_candidates", lb, [])
+    if not lb.is_contiguous():
+        raise ValueError("select_candidates: lb must be contiguous")
+    nta, ncb = lb.shape
+    out = torch.empty((nta, cap), dtype=torch.int32, device=lb.device)
+    if nta == 0:
+        return out
+    _launch("select_candidates", lb.device, [lb, out], [nta, ncb, cap])
+    select_candidates.launches += 1
+    return out
+
+
+def _launch_ungated(wrapper, q_sorted, b_sorted, b_orig, cand, tiles,
+                    out_shape, ints):
+    """The CUDA side of K1b, K1c and K3b: check the inputs, allocate the
+    (d, id) outputs of ``out_shape`` and launch the kernel named after
+    ``wrapper`` (counting the launch on it) with the int arguments
+    (nt, w, *ints)."""
+    name = wrapper.__name__
+    _check(q_sorted, b_sorted, b_orig, cand, tiles, None)
+    _cuda_checks(name, q_sorted, [b_sorted, b_orig, cand, tiles])
+    dev = q_sorted.device
+    out_d = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    out_i = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    nt, w = cand.shape
+    if nt:
+        _launch(name, dev, [q_sorted, b_sorted, b_orig, cand, tiles, out_d,
+                            out_i], [nt, w, *ints])
+        wrapper.launches += 1
+    return out_d, out_i
+
+
+def refine_nn_straight(
+    q_sorted: torch.Tensor,
+    b_sorted: torch.Tensor,
+    b_orig: torch.Tensor,
+    cand: torch.Tensor,
+    tiles: Opt = None,
+    exclude_self: bool = False,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """K1b (see ``refine_nn_straight_reference`` for the contract).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel on
+    the current stream, or raise: the kernel takes float32 only, every
+    tensor contiguous and on one device, and ``cand``/``tiles`` values must
+    index chunks of ``b_sorted`` / tiles of ``q_sorted``. Each launch adds
+    one to ``refine_nn_straight.launches``.
+    """
+    if q_sorted.device.type == "cpu":
+        return refine_nn_straight_reference(q_sorted, b_sorted, b_orig, cand,
+                                            tiles, exclude_self)
+    return _launch_ungated(
+        refine_nn_straight, q_sorted, b_sorted, b_orig, cand, tiles,
+        (cand.shape[0], CHUNK),
+        [chunks_per_step(cand.shape[1]), int(bool(exclude_self))])
+
+
+def refine_nn_fused(
+    q_sorted: torch.Tensor,
+    b_sorted: torch.Tensor,
+    b_orig: torch.Tensor,
+    cand: torch.Tensor,
+    tiles: Opt = None,
+    exclude_self: bool = False,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """K1c: K1b's function (``refine_nn_straight_reference``) through the
+    double-buffered kernel. No schedule calls it.
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel on
+    the current stream, or raise: as K1b, and ``b_sorted`` and ``b_orig``
+    16-byte aligned. Each launch adds one to ``refine_nn_fused.launches``.
+    """
+    if q_sorted.device.type == "cpu":
+        return refine_nn_straight_reference(q_sorted, b_sorted, b_orig, cand,
+                                            tiles, exclude_self)
+    if b_sorted.data_ptr() % 16 or b_orig.data_ptr() % 16:
+        raise ValueError("refine_nn_fused: b_sorted and b_orig must be "
+                         "16-byte aligned")
+    return _launch_ungated(refine_nn_fused, q_sorted, b_sorted, b_orig, cand,
+                           tiles, (cand.shape[0], CHUNK),
+                           [int(bool(exclude_self))])
+
+
+def refine_knn_straight(
+    q_sorted: torch.Tensor,
+    b_sorted: torch.Tensor,
+    b_orig: torch.Tensor,
+    cand: torch.Tensor,
+    k: int,
+    tiles: Opt = None,
+    exclude_self: bool = False,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """K3b (see ``refine_knn_straight_reference`` for the contract).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel on
+    the current stream, or raise: float32 only, k <= 32, every tensor
+    contiguous and on one device, and ``cand``/``tiles`` values must index
+    chunks of ``b_sorted`` / tiles of ``q_sorted``. Each launch adds one to
+    ``refine_knn_straight.launches``.
+    """
+    if q_sorted.device.type == "cpu":
+        return refine_knn_straight_reference(q_sorted, b_sorted, b_orig,
+                                             cand, k, tiles, exclude_self)
+    _check_k(k)
+    return _launch_ungated(refine_knn_straight, q_sorted, b_sorted, b_orig,
+                           cand, tiles, (cand.shape[0], CHUNK, k),
+                           [k, int(bool(exclude_self))])
+
+
 refine_nn.launches = 0
 refine_nn_payload.launches = 0
 refine_knn.launches = 0
 knn_moments.launches = 0
+select_candidates.launches = 0
+refine_nn_straight.launches = 0
+refine_nn_fused.launches = 0
+refine_knn_straight.launches = 0

@@ -27,6 +27,7 @@ from open_pcc_metric_tpu_torch.ops.refine import (
     INT_MAX, MOM_CH, knn_moments, knn_moments_reference, refine_knn,
     refine_knn_reference)
 
+from test_torch_knn_pruned import assert_matches, jax_knn_sorted
 from test_torch_refine import EPS32, jax_on_cpu
 
 K = 30
@@ -297,9 +298,12 @@ def test_cpu_dispatch_and_validation():
     with pytest.raises(ValueError):
         knn_moments(qg.points, qg.points, qg.perm, cand, None, got[0][:, :, -1],
                     got[1][:, :, -1])
-    # the moments pass sums a self-inclusive k-NN set only
-    with pytest.raises(ValueError):
-        knn_pruned_sorted(qg, qg, 500, 8, exclude_self=True, with_moments=True)
+    # a self-exclusive k-NN sums its moments from a gather of its k
+    # neighbours, as JAX's does: equal counts, sums within its tolerance
+    got = knn_pruned_sorted(qg, qg, 500, 8, exclude_self=True,
+                            with_moments=True)
+    assert_matches(got, jax_knn_sorted(qg, qg, 500, k=8, exclude_self=True,
+                                       with_moments=True), 500, k=8)
     # fully gated tiles without a seed keep (inf, INT_MAX) in every slot
     d, i = refine_knn(qg.points, qg.points, qg.perm, cand, 8,
                       ncand=torch.zeros(2, dtype=torch.int32))
