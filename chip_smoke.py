@@ -61,14 +61,22 @@ It prints:
   * each kernel's build time and ptxas resource lines,
   * one line per kernel phase, one timing line per path, with its checks
     (K7 and K1-expanded phases compare valid rows: their fused
-    multiply-adds round sentinel rows otherwise),
+    multiply-adds round sentinel rows otherwise); K1 and K3 phases give the
+    split count and the blocks launched, and the tier-B phases (K1's of
+    the three 800k sweeps, K3's of the 800k a->a k-NN, captured from real
+    searches) run at the automatic split count and at one block a tile,
+    both bit-identical to the plain version,
+  * on the estimation path line, each cloud's k-NN with every K3 pass and
+    K4 replayed alone, and one profiled cold call (wall, device-busy ms,
+    idle share),
   * one ``prologue A/B`` line per pair size and a ``2M stage split`` line,
   * the ``adaptive path``, ``payload path`` and ``float pair under
     adaptive`` lines, and a ``schedule split`` line per pair size (each
     sweep's time under each schedule with its kernels replayed alone),
   * a ``{"kernels": [...]}`` JSON line (launches on the paths, error and
     times against the plain version, the bound from this run's shapes and
-    data, and for K5 one PyTorch library call's time), and last
+    data, for K5 one PyTorch library call's time, and for K1 and K3 the
+    time PERF.md recorded for their first design), and last
   * ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the exit code is non-zero and the last line is
@@ -177,16 +185,43 @@ def _once_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def _bound(ops, tensors_in, tensors_out):
+def _bound_of(ops, nbytes):
     """(bound_ms, bound_by): the least time the card could take for
-    ``ops`` float32 operations and for reading each input and writing each
-    output once, at the published peaks."""
-    nbytes = sum(x.numel() * x.element_size()
-                 for x in (*tensors_in, *tensors_out) if x is not None)
+    ``ops`` float32 operations and ``nbytes`` bytes, at the published
+    peaks."""
     ops_ms = ops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
+
+
+def _bound(ops, tensors_in, tensors_out):
+    """``_bound_of`` for reading each input and writing each output once."""
+    return _bound_of(ops, sum(x.numel() * x.element_size()
+                              for x in (*tensors_in, *tensors_out)
+                              if x is not None))
+
+
+def _refine_bytes(q_points, b_points, perm, cand, tiles, ncand, init, outs):
+    """Bytes a K1 or K3 call must move, each once: the query rows of its
+    tiles, the (x, y, z, id) rows of each distinct chunk in its live slots,
+    those slots' ``cand`` entries, ``tiles``, ``ncand``, the seed and the
+    outputs. A compacted tier reads a few tiles and chunks of whole clouds,
+    which the clouds' sizes would overstate."""
+    import torch
+
+    nt, w = cand.shape
+    live = (torch.ones_like(cand, dtype=torch.bool) if ncand is None else
+            torch.arange(w, device=cand.device)[None, :]
+            < ncand.long()[:, None])
+    chunks = int(torch.unique(cand[live]).numel())
+    n_tiles = nt if tiles is None else int(torch.unique(tiles).numel())
+    q_row = 3 * q_points.element_size()
+    b_row = 3 * b_points.element_size() + perm.element_size()
+    rest = sum(x.numel() * x.element_size()
+               for x in (tiles, ncand, *(init or ()), *outs) if x is not None)
+    return (256 * (n_tiles * q_row + chunks * b_row)
+            + int(live.sum()) * cand.element_size() + rest)
 
 
 def _live_pairs(cand, ncand):
@@ -197,6 +232,46 @@ def _live_pairs(cand, ncand):
     nt, w = cand.shape
     live = nt * w if ncand is None else int(torch.clamp(ncand, 0, w).sum())
     return live * 256 * 256
+
+
+def _skip_ops(q_points, b_points, cand, tiles, ncand, thresh, full=None):
+    """Operations K1 and K3 must do on this data, for their bound. A warp
+    skips a word (32 staged records) when every row's bound to the word's
+    box is above the row's threshold at that point, which never falls below
+    its final one, ``thresh`` (K1: the row's d; K3: its k-th d). So they
+    do, at least, a point-box bound (OPS_PER_BOUND) for each row and live
+    word, and OPS_PER_PAIR for each pair of a (warp, word) where some row
+    is bounded at or below ``thresh``. ``full``: a tile mask whose live
+    pairs K3 also walks once without skipping (its threshold pass)."""
+    import torch
+
+    nt, w = cand.shape
+    dev = cand.device
+    t = torch.arange(nt, device=dev) if tiles is None else tiles.long()
+    live = (torch.full((nt,), w, device=dev) if ncand is None
+            else torch.clamp(ncand.long(), 0, w))
+    words = b_points.reshape(-1, 8, 32, 3)
+    lo, hi = words.amin(2), words.amax(2)
+    q = q_points.reshape(-1, 256, 3)
+    th = thresh.reshape(nt, 256)
+    step = max(1, 4096 // w)
+    near_words = 0
+    for i in range(0, nt, step):
+        qq = q[t[i:i + step]][:, None, None]
+        c = cand[i:i + step].long()
+        gap = torch.clamp(torch.maximum(qq - hi[c][..., None, :],
+                                        lo[c][..., None, :] - qq), min=0)
+        sq = gap * gap
+        lb = (sq[..., 0] + sq[..., 1]) + sq[..., 2]  # (n, w, word, row)
+        near = (lb <= th[i:i + step, None, None, :]).reshape(
+            *lb.shape[:3], 8, 32).any(-1)
+        on = torch.arange(w, device=dev)[None, :] < live[i:i + step, None]
+        near_words += int((near & on[:, :, None, None]).sum())
+    ops = (OPS_PER_PAIR * near_words * 32 * 32
+           + OPS_PER_BOUND * int(live.sum()) * 8 * 256)
+    if full is not None:
+        ops += OPS_PER_PAIR * int(live[full].sum()) * 256 * 256
+    return ops
 
 
 def _counts_of(dist, lb, valid_t):
@@ -220,7 +295,7 @@ def kernel_phases(a, b, float_cloud):
 
     from open_pcc_metric_tpu_torch.ops.nn_pruned import stable_top, tile_bounds
     from open_pcc_metric_tpu_torch.ops.refine import (
-        refine_nn, refine_nn_reference)
+        refine_nn, refine_nn_reference, sm_count, split_count)
 
     def check(name, qg, bg, cand, **kw):
         args = (qg.points, bg.points, bg.perm, cand.contiguous())
@@ -235,13 +310,16 @@ def kernel_phases(a, b, float_cloud):
             raise AssertionError(
                 f"K1 phase {name}: {bad} rows differ from refine_nn_reference "
                 f"(max |d| error {err})")
-        init = kw.get("init") or (None, None)
-        bound_ms, bound_by = _bound(
-            OPS_PER_PAIR * _live_pairs(cand, kw.get("ncand")),
-            [*args, kw.get("tiles"), kw.get("ncand"), *init], [dk, ik])
+        bound_ms, bound_by = _bound_of(
+            _skip_ops(qg.points, bg.points, args[3], kw.get("tiles"),
+                      kw.get("ncand"), dk),
+            _refine_bytes(*args, kw.get("tiles"), kw.get("ncand"),
+                          kw.get("init"), (dk, ik)))
+        splits = split_count(*cand.shape, sm_count(cand.device))
         rec = {
             "phase": name, "tiles": int(cand.shape[0]),
-            "slots": int(cand.shape[1]), "max_abs_err": err,
+            "slots": int(cand.shape[1]), "splits": splits,
+            "blocks": int(cand.shape[0]) * splits, "max_abs_err": err,
             "ms": _time_ms(lambda: refine_nn(*args, **kw), 20),
             "plain_ms": _time_ms(lambda: refine_nn_reference(*args, **kw), 3),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -470,7 +548,8 @@ def knn_phases(a, float_cloud):
 
     from open_pcc_metric_tpu_torch.ops.nn_pruned import stable_top, tile_bounds
     from open_pcc_metric_tpu_torch.ops.refine import (
-        knn_moments, knn_moments_reference, refine_knn, refine_knn_reference)
+        knn_moments, knn_moments_reference, refine_knn, refine_knn_reference,
+        sm_count, split_count)
 
     dev = a.points.device
 
@@ -485,10 +564,12 @@ def knn_phases(a, float_cloud):
         return keep.nonzero()[:, 0]
 
     def run(name, kernel, plain, compare, cand, ncand=None, tiles=None,
-            init=None, **kw):
-        """Kernel on the full call, plain on the full call or a subset.
-        The bound counts OPS_PER_PAIR per visited pair and, for K4,
-        OPS_PER_MEMBER per k-NN member it sums."""
+            init=None, grid=None, **kw):
+        """Kernel on the full call, plain on the full call or a subset,
+        over ``grid`` (cloud a's by default). The bound counts K3's
+        unskippable operations (``_skip_ops``) and, for K4, OPS_PER_PAIR
+        per visited pair and OPS_PER_MEMBER per k-NN member it sums."""
+        grid = grid or g
         nt = cand.shape[0]
         args = dict(kw, tiles=tiles, init=init)
         if ncand is not None:
@@ -515,22 +596,32 @@ def knn_phases(a, float_cloud):
             want, plain_ms = _once_ms(lambda: plain(cand=cand, **args))
         got = tuple(x[rows] for x in out) if isinstance(out, tuple) else out[rows]
         err = compare(name, got, want)
-        outs = out if isinstance(out, tuple) else (out,)
-        ops = OPS_PER_PAIR * _live_pairs(cand, ncand)
-        if not isinstance(out, tuple):  # K4: members counted in channel 0
+        if isinstance(out, tuple):  # K3: the threshold pass when open
+            full = (torch.ones(nt, dtype=torch.bool, device=dev)
+                    if init is None else torch.isinf(init[0][..., -1]).any(1))
+            bound_ms, bound_by = _bound_of(
+                _skip_ops(grid.points, grid.points, cand, tiles, ncand,
+                          out[0][..., -1], full),
+                _refine_bytes(grid.points, grid.points, grid.perm, cand,
+                              tiles, ncand, init, out))
+        else:  # K4: members counted in channel 0
             members = out[..., 0].sum() - (0 if init is None
                                            else init[..., 0].sum())
-            ops += OPS_PER_MEMBER * float(members)
-        inits = init if isinstance(init, tuple) else (init,)
-        bound_ms, bound_by = _bound(
-            ops, [cand, ncand, tiles, *inits, *kw.values(), g.points,
-                  g.perm], outs)
+            bound_ms, bound_by = _bound(
+                OPS_PER_PAIR * _live_pairs(cand, ncand)
+                + OPS_PER_MEMBER * float(members),
+                [cand, ncand, tiles, init, *kw.values(), grid.points,
+                 grid.perm], [out])
         rec = {
             "phase": name, "tiles": int(nt), "slots": int(cand.shape[1]),
             "max_abs_err": err,
             "ms": _time_ms(lambda: kernel(cand=cand, **args), 5),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        if kernel is not k4:  # K3: its split count and blocks
+            rec["splits"] = split_count(nt, int(cand.shape[1]),
+                                        sm_count(dev))
+            rec["blocks"] = int(nt) * rec["splits"]
         if note:
             rec["plain_subset"] = note
             rec["plain_subset_ms"] = sub_ms
@@ -637,8 +728,141 @@ def knn_phases(a, float_cloud):
                                     cand.contiguous(), K, **kw)
 
     k3_recs.append(run("knn float probe", k3f, k3f_plain, knn_compare,
-                       order_f[:, :P1])[1])
+                       order_f[:, :P1], grid=gf)[1])
     return k3_recs, k4_recs
+
+
+def tail_phases(a, b):
+    """The tier-B calls of real 800k searches at the base rungs, against
+    their plain versions on the card: K1's of the a->b, b->a and self
+    sweeps (cap CAP, fallback FALLBACK) and K3's of the a->a estimation
+    k-NN (k K, cap KCAP, fallback KFT), captured as the schedules make
+    them. Each runs at the automatic split count and at one block a tile
+    (``splits=1``) in this run; both must be bit-identical to the plain
+    version in d and id. Returns (K1 records, K3 records)."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops import knn_pruned, nn_pruned
+    from open_pcc_metric_tpu_torch.ops.refine import (
+        refine_knn, refine_knn_reference, refine_nn, refine_nn_reference)
+
+    def phase(label, kernel, plain, call):
+        args, kw = call
+        cand, ncand = args[3], kw["ncand"]
+        knn = kernel is refine_knn
+        nt, w = cand.shape
+        splits, blocks = _split_of(call)
+        got = {"auto": kernel(*args, **kw), "1": kernel(*args, splits=1, **kw)}
+        torch.cuda.synchronize()
+        want, plain_ms = _once_ms(lambda: plain(*args, **kw))
+        for s, out in got.items():
+            if not all(_bit_equal(x, y) for x, y in zip(out, want)):
+                bad = int(((out[0] != want[0]) | (out[1] != want[1])).sum())
+                raise AssertionError(f"{label} at splits={s}: {bad} entries "
+                                     "differ from the plain version")
+        live = torch.clamp(ncand, 0, w)
+        seed_d = kw["init"][0]
+        ops = _skip_ops(args[0], args[1], cand, kw.get("tiles"), ncand,
+                        want[0][..., -1] if knn else want[0],
+                        torch.isinf(seed_d[..., -1]).any(1) if knn else None)
+        bound_ms, bound_by = _bound_of(
+            ops, _refine_bytes(*args[:4], kw.get("tiles"), ncand, kw["init"],
+                               want))
+        rec = {
+            "phase": label, "tiles": int(nt), "slots": int(w),
+            "live_slots": int(live.sum()), "max_live_slots": int(live.max()),
+            "splits": splits, "blocks": blocks, "max_abs_err": 0.0,
+            "compared": "every row, at the automatic split and at splits=1",
+            "ms": _time_ms(lambda: kernel(*args, **kw), 10),
+            "ms_splits_1": _time_ms(lambda: kernel(*args, splits=1, **kw), 10),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        print("kernel phase " + json.dumps(rec), flush=True)
+        return rec
+
+    ga, gb = a.get_grid(), b.get_grid()
+    k1 = []
+    for name, gq, gs, nq, ex in (("a->b", ga, gb, a.n, False),
+                                 ("b->a", gb, ga, b.n, False),
+                                 ("self a->a", ga, ga, a.n, True)):
+        calls = _passes(_calls(["refine_nn"], lambda: nn_pruned.nn_pruned_sorted(
+            gq, gs, nq, exclude_self=ex, cap=CAP,
+            fallback_tiles=FALLBACK))["refine_nn"])
+        if "tier B" not in calls:
+            raise AssertionError(f"the 800k {name} sweep ran no tier B")
+        k1.append(phase(f"tier B {name}", refine_nn, refine_nn_reference,
+                        calls["tier B"]))
+    calls = _passes(_calls(["refine_knn"], lambda: knn_pruned.knn_pruned_sorted(
+        ga, ga, a.n, K, cap=KCAP, fallback_tiles=KFT),
+        knn_pruned)["refine_knn"])
+    if "tier B" not in calls:
+        raise AssertionError("the 800k a->a k-NN ran no tier B")
+    k3 = [phase("knn tier B a->a", refine_knn, refine_knn_reference,
+                calls["tier B"])]
+    return k1, k3
+
+
+def estimation_split(clouds, smi):
+    """Each cloud's 30-NN of the estimation (counted schedule, base rung
+    KCAP, KFT, with moments): its stream time, each K3 pass replayed alone
+    (with its split count) and K4's launches replayed alone. CUDA events,
+    mean of 5."""
+    from open_pcc_metric_tpu_torch.ops import knn_pruned
+
+    out = {}
+    for name, c in clouds:
+        g = c.get_grid()
+
+        def knn():
+            return knn_pruned.knn_pruned_sorted(
+                g, g, c.n, K, cap=KCAP, fallback_tiles=KFT, with_moments=True)
+
+        calls = _calls(["refine_knn", "knn_moments"], knn, knn_pruned)
+        real = {n: getattr(knn_pruned, n) for n in calls}
+        total = _time_ms(knn, 5)
+        k3 = {p: _time_ms(lambda x=x, kw=kw: real["refine_knn"](*x, **kw), 5)
+              for p, (x, kw) in _passes(calls["refine_knn"]).items()}
+        k4 = _time_ms(lambda: [real["knn_moments"](*x, **kw)
+                               for x, kw in calls["knn_moments"]], 5)
+        out[name] = {"knn_ms": total, "k3_ms": k3,
+                     "k3_splits": {p: _split_of(call)[0] for p, call in
+                                   _passes(calls["refine_knn"]).items()},
+                     "k4_ms": k4, "rest_ms": total - sum(k3.values()) - k4}
+    return {"rung": [KCAP, KFT], "clouds": out, "card": smi}
+
+
+def cold_profile(origin, reconst, dev):
+    """One cold estimation call (fresh clouds without normals) under
+    torch.profiler: wall seconds, device-busy ms (the kernels' device time,
+    one stream) and the idle share, with the kernels that took the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_pcc_metric_tpu_torch.cloud import Cloud
+    from open_pcc_metric_tpu_torch.ops.fused import fused_evaluate
+
+    a = Cloud.from_numpy(origin[0], colors=origin[1], device=dev)
+    b = Cloud.from_numpy(reconst[0], colors=reconst[1], device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fused_evaluate(a, b, color_scheme="ycc", point_to_plane=True,
+                       d2_mode="pc_error")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_s": wall,
+            "device_busy_ms": busy if busy > 0 else "not measured",
+            "idle_share": 1 - busy / 1e3 / wall if busy > 0 else "not measured",
+            "top_kernels_ms": dict(top)}
 
 
 def _rows_of(args, rows):
@@ -1440,14 +1664,15 @@ def payload_sweeps(a, b, label, oracle):
     return off
 
 
-def _replays(names, sweep):
+def _calls(names, sweep, module=None):
     """Run ``sweep`` once with every call of the kernel wrappers ``names``
-    (as ops/nn_pruned.py calls them) recorded; returns {name: a function
-    that replays that wrapper's calls alone}."""
-    from open_pcc_metric_tpu_torch.ops import nn_pruned as nn_mod
+    (as ``module``, by default ops/nn_pruned.py, calls them) recorded;
+    returns {name: [(args, kwargs) of each call]}."""
+    from open_pcc_metric_tpu_torch.ops import nn_pruned
 
+    module = module or nn_pruned
     calls = {name: [] for name in names}
-    real = {name: getattr(nn_mod, name) for name in names}
+    real = {name: getattr(module, name) for name in names}
 
     def spy(name):
         def call(*args, **kw):
@@ -1456,14 +1681,44 @@ def _replays(names, sweep):
         return call
 
     for name in names:
-        setattr(nn_mod, name, spy(name))
+        setattr(module, name, spy(name))
     try:
         sweep()
     finally:
         for name in names:
-            setattr(nn_mod, name, real[name])
+            setattr(module, name, real[name])
+    return calls
+
+
+def _replays(names, sweep, module=None):
+    """``_calls``, each call as a function that replays it alone."""
+    from open_pcc_metric_tpu_torch.ops import nn_pruned
+
+    real = {name: getattr(module or nn_pruned, name) for name in names}
     return {name: [lambda x=x, kw=kw, f=real[name]: f(*x, **kw)
-                   for x, kw in calls[name]] for name in names}
+                   for x, kw in calls]
+            for name, calls in _calls(names, sweep, module).items()}
+
+
+# The passes of the counted schedules, in the order they call K1 or K3.
+PASSES = ("probe", "extension", "tier A", "tier B")
+
+
+def _passes(calls):
+    """{pass name: (args, kwargs)} of a counted sweep's K1 or K3 calls."""
+    if len(calls) > len(PASSES):
+        raise AssertionError(f"{len(calls)} refine calls in one sweep")
+    return dict(zip(PASSES, calls))
+
+
+def _split_of(call):
+    """(split count, blocks) of a K1 or K3 call at the automatic count."""
+    from open_pcc_metric_tpu_torch.ops.refine import sm_count, split_count
+
+    cand = call[0][3]
+    nt, w = cand.shape
+    splits = split_count(nt, w, sm_count(cand.device))
+    return splits, nt * splits
 
 
 def stage_split(a, b, smi, ab):
@@ -1497,10 +1752,12 @@ def stage_split(a, b, smi, ab):
 def schedule_split(a, b, label, smi, payload=True):
     """Per sweep of the pair at the rung each schedule's ladder settled on:
     the sweep's stream time under the default schedule with its K1 launches
-    replayed alone; under the adaptive one with each K7 pass (P1, P2, P3)
+    replayed alone (each pass named, with its split count); under the
+    adaptive one with each K7 pass (P1, P2, P3)
     replayed alone; and, with ``payload``, the cross sweeps under the
     payload schedule with K6 (stage 1) and K1 (stage 2) replayed alone.
     The rest is the difference. CUDA events, mean of 5."""
+    from open_pcc_metric_tpu_torch.ops import nn_pruned
     from open_pcc_metric_tpu_torch.ops.fused import _pack_payload
     from open_pcc_metric_tpu_torch.ops.nn_pruned import (
         nn_pruned_sorted, nn_pruned_sorted_payload)
@@ -1519,12 +1776,19 @@ def schedule_split(a, b, label, smi, payload=True):
                                         fallback_tiles=ft, refine_impl=impl,
                                         mxu_ok=True)
 
-            replays = _replays([kernel], sweep)[kernel]
+            calls = _calls([kernel], sweep)[kernel]
             total = _time_ms(sweep, 5)
-            ms = [_time_ms(f, 5) for f in replays]
-            out[f"{name} {impl}"] = {"rung": [cap, ft], "sweep_ms": total,
-                                     f"{kernel}_ms": ms,
-                                     "rest_ms": total - sum(ms)}
+            real = getattr(nn_pruned, kernel)
+            ms = [_time_ms(lambda x=x, kw=kw: real(*x, **kw), 5)
+                  for x, kw in calls]
+            rec = {"rung": [cap, ft], "sweep_ms": total, f"{kernel}_ms": ms,
+                   "rest_ms": total - sum(ms)}
+            if impl == "default":  # each K1 pass and its split count
+                rec["k1_passes_ms"] = dict(zip(PASSES, ms))
+                rec["k1_splits"] = {p: _split_of(call)[0]
+                                    for p, call in _passes(calls).items()}
+            out[f"{name} {impl}"] = rec
+            del calls
         if payload and not ex:
             cap, ft = _settled_rung(q, s, "default", True)
             pay_o = _pack_payload(s.points, s.colors, s.normals)
@@ -1839,6 +2103,9 @@ def main() -> int:
     k7_recs, _ = adaptive_phases(a, b)
     k6_recs = payload_phases(origin, reconst, dev)
     k3_recs, k4_recs = knn_phases(a, fcloud)
+    tail_k1, tail_k3 = tail_phases(a, b)
+    records += tail_k1
+    k3_recs += tail_k3
     ga, gb, gf = a.get_grid(), b.get_grid(), fcloud.get_grid()
     k2a_recs, k2b_recs = select_phases([
         ("800k a->b", ga, gb, a.n, CAP, False),
@@ -1981,6 +2248,8 @@ def main() -> int:
         "k1_launches": est_launches["refine_nn"],
         "k3_launches": est_launches["refine_knn"],
         "k4_launches": est_launches["knn_moments"],
+        "knn_split": estimation_split([("origin", ea), ("reconst", eb)], smi),
+        "cold_profile": cold_profile(origin, reconst, dev),
         "card": smi,
     }), flush=True)
     knn_oracle = {}

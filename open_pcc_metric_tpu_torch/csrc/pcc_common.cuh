@@ -17,7 +17,10 @@
 // uses offset as K1 does. So do the fixed-cap schedule's refines K1b
 // (refine_nn_straight.cu), K1c (refine_nn_fused.cu) and K3b
 // (refine_knn_straight.cu), which must equal K1 and K3 ungated; its
-// candidate select K2c (select_candidates.cu) shares lex_less.
+// candidate select K2c (select_candidates.cu) shares lex_less. K1 and K3
+// share the split of a tile's slot range over a thread-block cluster
+// (split_begin, launch_split) and the skip of 32-record words by their box
+// (stage_chunk_boxed, point_box_lb).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +30,7 @@
 namespace pcc {
 
 constexpr int kChunk = 256;  // points per Morton chunk = queries per tile
+constexpr int kMaxSplits = 8;  // the portable thread-block cluster size
 
 struct __align__(16) Rec {
   float x, y, z;
@@ -116,6 +120,90 @@ __device__ __forceinline__ float bbox_lb(const float* alo, const float* ahi,
     lb = d == 0 ? sq : __fadd_rn(lb, sq);
   }
   return lb;
+}
+
+// Thread `lane` stages record `lane` of chunk `c`, as stage_chunk does, and
+// lane 0 of each warp w writes to boxes[6 * w, 6 * w + 6) the box (min x,
+// y, z, then max x, y, z) of the 32 records its warp staged: records
+// [32 * w, 32 * w + 32) of the chunk. The caller synchronises before and
+// after.
+__device__ __forceinline__ void stage_chunk_boxed(Rec* chunk, float* boxes,
+                                                  const float* b,
+                                                  const int* b_orig, int c,
+                                                  int lane) {
+  stage_chunk(chunk, b, b_orig, c, lane);
+  const Rec r = chunk[lane];
+  float lo[3] = {r.x, r.y, r.z};
+  float hi[3] = {r.x, r.y, r.z};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int off = 16 >> i;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = fminf(lo[a], __shfl_xor_sync(0xffffffffu, lo[a], off));
+      hi[a] = fmaxf(hi[a], __shfl_xor_sync(0xffffffffu, hi[a], off));
+    }
+  }
+  if ((lane & 31) == 0) {
+    float* o = boxes + 6 * (lane >> 5);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      o[a] = lo[a];
+      o[3 + a] = hi[a];
+    }
+  }
+}
+
+// A lower bound of offset(r, q).d over every record r in `box` (min x, y,
+// z, then max x, y, z): bbox_lb of the point box (q, q). Each of its steps
+// rounds as offset's does and rounding is monotone, so for r in the box
+// each |gap| <= |r - q| per axis after rounding and the bound never exceeds
+// d: a row whose bound to a box is above its threshold d can take no
+// record of that box.
+__device__ __forceinline__ float point_box_lb(const float* box, float qx,
+                                              float qy, float qz) {
+  const float q[3] = {qx, qy, qz};
+  return bbox_lb(q, q, box, box + 3);
+}
+
+// First slot of split s of a tile's live slot range [0, live) cut into
+// `splits` parts: floor(s * live / splits), so split s walks
+// [split_begin(s), split_begin(s + 1)). The parts are disjoint, cover the
+// range, differ in length by at most one, and none is empty when live >=
+// splits. ops/refine.py split_ranges is the same rule.
+__host__ __device__ __forceinline__ int split_begin(int live, int s,
+                                                    int splits) {
+  return static_cast<int>(static_cast<int64_t>(s) * live / splits);
+}
+
+// Launch `kernel` on nt * splits blocks of kChunk threads. With splits > 1
+// the blocks of one tile form a thread-block cluster of `splits` blocks
+// (block rank = blockIdx.x % splits), so they can merge through
+// distributed shared memory; with splits == 1 it is a plain launch. Returns
+// the launch's error (0 = ok): a refused cluster launch is reported, never
+// replaced by another launch.
+template <typename... Params, typename... Args>
+inline int launch_split(void (*kernel)(Params...), int nt, int splits,
+                        size_t smem, cudaStream_t stream, Args... args) {
+  if (splits == 1) {
+    kernel<<<nt, kChunk, smem, stream>>>(args...);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nt) * splits);
+  cfg.blockDim = dim3(kChunk);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace pcc

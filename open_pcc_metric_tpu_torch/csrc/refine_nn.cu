@@ -22,28 +22,96 @@
 //
 // Bound: FP32 ALU. Each (query, candidate) pair costs 8 flops (3 sub,
 // 3 mul, 2 add; expanded: 1 add and 3 FMA, 7 flops) plus one
-// compare-select, against
-// 16 bytes of shared memory (expanded: 20) read as a warp-wide broadcast;
-// global traffic is 4 KB per chunk per tile.
-// Design: one block of 256 threads per tile, one query row per thread held
-// in registers; each live slot stages its chunk's 256 (x, y, z, id)
-// records in shared memory once, and every thread scans all 256 of them,
-// so each staged record serves 256 pairs. The per-tile ncand gate is the
-// loop bound, so gated slots cost nothing. The distance form is a template
-// argument. TMA, wgmma and slot batching are left out: this version is
-// meant to be right and simple.
+// compare-select, against 16 bytes of shared memory (expanded: 20) read as
+// a warp-wide broadcast; global traffic is 4 KB per chunk per tile. Under
+// -fmad=false the difference form emits no FMA, so its instruction ceiling
+// is about half the published 67 TFLOP/s, which counts an FMA as two.
+//
+// Design: one query row per thread held in registers, 256 threads a block.
+//   * Split: the tiers hand K1 a few tiles with hundreds of live slots each
+//     (tier B: at most 32 tiles, up to ~800 slots), which one block per tile
+//     would walk serially on a few of the 132 SMs. So the host picks a split
+//     count S (ops/refine.py split_count, from nt and w only: 1 at probe
+//     shapes, up to 8 in tier B) and block (t, s) walks the s-th of S
+//     balanced parts of tile t's live range (pcc::split_begin; live is read
+//     on the device, so no readback decides the launch). The S blocks of a
+//     tile form one thread-block cluster: each leaves its 256 partial
+//     (d, id) pairs in shared memory, the cluster synchronises, and the
+//     leader (rank 0) takes the lexicographic minimum over the S partials
+//     through distributed shared memory and writes the row. The minimum is
+//     associative and commutative, so the result equals the serial walk
+//     bit for bit, and the seed may enter every split (the minimum is
+//     idempotent). A cluster keeps the merge in one launch, with no scratch
+//     buffer, no atomics and no second kernel; 8 blocks (the portable
+//     cluster size) a tile fill the card once tier B has 16 tiles, which
+//     the schedules give it (ft2 >= 16).
+//   * Steps: K1b's structure (refine_nn_straight.cu, 23% faster than the
+//     one-chunk step ungated): each step stages up to 8 chunks' (x, y, z,
+//     id) records between one pair of barriers (32 KB), every thread takes
+//     each chunk's (d, lowest id) minimum and merges it into its running
+//     best once. The per-tile ncand gate bounds the walk, so gated slots
+//     cost nothing. The self test runs only on the one chunk that can hold
+//     the query's own column. K1c (refine_nn_fused.cu) showed that
+//     cp.async double buffering does not pay on this scan, so it is left
+//     out.
+//   * Word skip: staging leaves the box of each warp's 32 records (a word),
+//     and a warp skips a word when each of its rows is bounded away from
+//     the box by more than its best d (pcc::point_box_lb never exceeds a
+//     record's d, so no skipped record could win). Words skip in seeded
+//     passes and in a probe's later chunks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_build.py).
 
 #include "pcc_common.cuh"
 
+#include <cooperative_groups.h>
+
 #include <climits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using pcc::kChunk;
 using pcc::Rec;
+
+constexpr int kStage = 8;  // chunks staged between one pair of barriers
+constexpr int kWords = kChunk / 32;  // 32-record words of a chunk, one a warp
+
+// Folds the lexicographic (d, id) minimum of one staged chunk into (md, mi).
+// kSelf: the chunk holds the query's own column (lane), which counts as inf.
+// A warp skips a word (the 32 records of one box of `boxes`) when every
+// row's bound to the box is above its best d so far, `best`: none of them
+// could win. The expanded form may round below that bound, so it skips
+// nothing.
+template <bool kExpanded, bool kSelf>
+__device__ __forceinline__ void scan_chunk(const Rec* chunk,
+                                           const float* chunk_sq,
+                                           const float* boxes, float qx,
+                                           float qy, float qz,
+                                           const pcc::XQuery& xq, int lane,
+                                           float best, float& md, int& mi) {
+#pragma unroll 1
+  for (int wd = 0; wd < kWords; ++wd) {
+    if (!kExpanded) {
+      const float lb = pcc::point_box_lb(boxes + 6 * wd, qx, qy, qz);
+      if (!__any_sync(0xffffffffu, !(lb > best))) continue;
+    }
+#pragma unroll 8
+    for (int bit = 0; bit < 32; ++bit) {
+      const int j = wd * 32 + bit;
+      const Rec r = chunk[j];
+      float d = kExpanded ? pcc::expanded(xq, r.x, r.y, r.z, chunk_sq[j])
+                          : pcc::offset(r, qx, qy, qz).d;
+      if (kSelf && j == lane) d = pcc::inf();
+      if (pcc::lex_less(d, r.id, md, mi)) {
+        md = d;
+        mi = r.id;
+      }
+    }
+  }
+}
 
 template <bool kExpanded>
 __global__ void __launch_bounds__(kChunk)
@@ -52,11 +120,16 @@ refine_nn_kernel(const float* __restrict__ q, const float* __restrict__ b,
                  const int* __restrict__ tiles, const int* __restrict__ ncand,
                  const float* __restrict__ init_d,
                  const int* __restrict__ init_i, float* __restrict__ out_d,
-                 int* __restrict__ out_i, int w, int exclude_self) {
-  __shared__ Rec chunk[kChunk];
-  __shared__ float chunk_sq[kExpanded ? kChunk : 1];  // |b|^2 per record
+                 int* __restrict__ out_i, int w, int exclude_self,
+                 int splits) {
+  __shared__ Rec chunks[kStage][kChunk];
+  __shared__ float boxes[kStage][kWords * 6];  // each word's box
+  __shared__ float chunk_sq[kExpanded ? kStage : 1][kChunk];  // |b|^2
+  __shared__ float part_d[kChunk];  // this split's partial rows
+  __shared__ int part_i[kChunk];
 
-  const int t = blockIdx.x;
+  const int t = blockIdx.x / splits;
+  const int split = blockIdx.x - t * splits;  // the block's cluster rank
   const int lane = threadIdx.x;
   const int tile = tiles != nullptr ? tiles[t] : t;
   const int64_t row = static_cast<int64_t>(tile) * kChunk + lane;
@@ -72,28 +145,59 @@ refine_nn_kernel(const float* __restrict__ q, const float* __restrict__ b,
 
   int live = w;
   if (ncand != nullptr) live = min(max(ncand[t], 0), w);  // uniform per block
+  const int begin = pcc::split_begin(live, split, splits);
+  const int end = pcc::split_begin(live, split + 1, splits);
+  const int* slots = cand + static_cast<int64_t>(t) * w;
 
-  for (int s = 0; s < live; ++s) {
-    const int c = cand[static_cast<int64_t>(t) * w + s];
-    __syncthreads();  // every thread is done with the previous chunk
-    pcc::stage_chunk(chunk, b, b_orig, c, lane);
-    if (kExpanded) {
-      const Rec& r = chunk[lane];
-      chunk_sq[lane] = pcc::sq_norm(r.x, r.y, r.z);
-    }
-    __syncthreads();
-    const int self_j = (exclude_self && c == tile) ? lane : -1;
-#pragma unroll 8
-    for (int j = 0; j < kChunk; ++j) {
-      const Rec r = chunk[j];
-      float d = kExpanded ? pcc::expanded(xq, r.x, r.y, r.z, chunk_sq[j])
-                          : pcc::offset(r, qx, qy, qz).d;
-      if (j == self_j) d = pcc::inf();
-      if (pcc::lex_less(d, r.id, best_d, best_i)) {
-        best_d = d;
-        best_i = r.id;
+  for (int s0 = begin; s0 < end; s0 += kStage) {
+    const int n = min(kStage, end - s0);
+    __syncthreads();  // every thread is done with the previous step
+    for (int s = 0; s < n; ++s) {
+      if (kExpanded) {
+        pcc::stage_chunk(chunks[s], b, b_orig, slots[s0 + s], lane);
+        const Rec& r = chunks[s][lane];
+        chunk_sq[s][lane] = pcc::sq_norm(r.x, r.y, r.z);
+      } else {
+        pcc::stage_chunk_boxed(chunks[s], boxes[s], b, b_orig, slots[s0 + s],
+                               lane);
       }
     }
+    __syncthreads();
+    for (int s = 0; s < n; ++s) {
+      float md = pcc::inf();
+      int mi = INT_MAX;
+      const float* sq = chunk_sq[kExpanded ? s : 0];
+      if (exclude_self && slots[s0 + s] == tile) {
+        scan_chunk<kExpanded, true>(chunks[s], sq, boxes[s], qx, qy, qz, xq,
+                                    lane, best_d, md, mi);
+      } else {
+        scan_chunk<kExpanded, false>(chunks[s], sq, boxes[s], qx, qy, qz, xq,
+                                     lane, best_d, md, mi);
+      }
+      if (pcc::lex_less(md, mi, best_d, best_i)) {
+        best_d = md;
+        best_i = mi;
+      }
+    }
+  }
+
+  if (splits > 1) {
+    part_d[lane] = best_d;
+    part_i[lane] = best_i;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every split's partial is in its shared memory
+    if (split == 0) {
+      for (int r = 1; r < splits; ++r) {
+        const float d = cluster.map_shared_rank(part_d, r)[lane];
+        const int i = cluster.map_shared_rank(part_i, r)[lane];
+        if (pcc::lex_less(d, i, best_d, best_i)) {
+          best_d = d;
+          best_i = i;
+        }
+      }
+    }
+    cluster.sync();  // no block leaves while the leader reads its partial
+    if (split != 0) return;
   }
   out_d[o] = best_d;
   out_i[o] = best_i;
@@ -101,18 +205,23 @@ refine_nn_kernel(const float* __restrict__ q, const float* __restrict__ b,
 
 }  // namespace
 
-// Plain C entry for ctypes. Optional arrays are null pointers. Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError() (0 = ok).
+// Plain C entry for ctypes. Optional arrays are null pointers. `splits`
+// (1..8) blocks walk each tile's live range, as a cluster when above 1.
+// Launches on `stream`, does not synchronise, and returns cudaGetLastError()
+// (0 = ok), or cudaErrorInvalidValue for a bad split count.
 extern "C" int pcc_refine_nn(const float* q, const float* b, const int* b_orig,
                              const int* cand, const int* tiles,
                              const int* ncand, const float* init_d,
                              const int* init_i, float* out_d, int* out_i,
                              int nt, int w, int exclude_self, int expanded,
-                             void* stream) {
+                             int splits, void* stream) {
+  if (splits < 1 || splits > pcc::kMaxSplits) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (nt <= 0) return 0;
   auto kernel = expanded ? &refine_nn_kernel<true> : &refine_nn_kernel<false>;
-  kernel<<<nt, kChunk, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, b, b_orig, cand, tiles, ncand, init_d, init_i, out_d, out_i, w,
-      exclude_self);
-  return static_cast<int>(cudaGetLastError());
+  return pcc::launch_split(kernel, nt, splits, 0,
+                           static_cast<cudaStream_t>(stream), q, b, b_orig,
+                           cand, tiles, ncand, init_d, init_i, out_d, out_i, w,
+                           exclude_self, splits);
 }

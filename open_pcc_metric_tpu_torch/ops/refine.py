@@ -35,6 +35,12 @@ The fixed-cap schedules' stage 1 (``nn_pruned``, ``knn_pruned``) runs:
     chunk only where it can change a buffer. Kernel
     ``csrc/refine_knn_straight.cu``, the port of ``refine_knn_pallas``.
 
+K1 and K3 split each tile's live slots over a thread-block cluster of
+``split_count(nt, w, sms)`` blocks (1 at probe shapes, up to
+``MAX_SPLITS`` in the tiers) and merge the parts on chip; ``split_ranges``
+is the parts' rule. The split changes no result, and neither does the kernels' skip of
+32 staged records whose box a warp's rows are all bounded away from.
+
 On CUDA tensors each wrapper launches its hand-written kernel on the
 current stream (or raises); on CPU tensors it runs its plain PyTorch
 version (``*_reference``), which is also what the kernel is checked against
@@ -56,6 +62,13 @@ INT_MAX = torch.iinfo(torch.int32).max
 MOM_CH = 10  # [cnt, sx, sy, sz, sxx, syy, szz, sxy, sxz, syz]
 MAX_K = 32  # the largest k one K3 build serves
 PAYLOAD_F = 16  # K6 payload rows: [pts 3, col 3, nrm 3, 0 x 7]
+# K1 and K3 split a tile's slot range over a cluster of up to MAX_SPLITS
+# blocks (the portable cluster size, pcc::kMaxSplits), aiming at
+# SPLIT_BLOCKS_PER_SM blocks for each SM of the device in all, and give no
+# split fewer than MIN_SPLIT_SLOTS slots of the call's width.
+MAX_SPLITS = 8
+SPLIT_BLOCKS_PER_SM = 4
+MIN_SPLIT_SLOTS = 16
 
 # The plain versions materialise (tiles, 256, slots * 256) blocks; this
 # bounds one block's element count (64 MB of float32).
@@ -103,6 +116,39 @@ def _check_pair(name, d, i, shape, dtype):
 def _check_k(k: int):
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+
+
+def split_count(nt: int, w: int, sms: int) -> int:
+    """K1's and K3's blocks per tile for a call of ``nt`` tiles and ``w``
+    slots on a device of ``sms`` SMs, from the shapes alone (no readback):
+    enough to reach SPLIT_BLOCKS_PER_SM blocks an SM, at most MAX_SPLITS
+    and at most one per MIN_SPLIT_SLOTS slots. On an H100 (132 SMs): 1 at
+    probe shapes (thousands of tiles), 8 in tier B (a few dozen tiles of
+    hundreds of slots)."""
+    if nt <= 0 or w <= 0:
+        return 1
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // nt)
+    return max(1, min(want, MAX_SPLITS, -(-w // MIN_SPLIT_SLOTS)))
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of CUDA ``device``, which ``split_count`` sizes for."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_ranges(live: torch.Tensor, splits: int):
+    """[(begin, end)] of each split: split s of a tile walks slots
+    [floor(s * live / S), floor((s + 1) * live / S)) of its ``live`` ones,
+    the kernels' ``pcc::split_begin`` rule. Disjoint, covering [0, live),
+    lengths differing by at most one."""
+    live = live.long()
+    return [((s * live) // splits, ((s + 1) * live) // splits)
+            for s in range(splits)]
+
+
+def _check_splits(splits) -> None:
+    if splits is not None and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits must be in [1, {MAX_SPLITS}], got {splits}")
 
 
 def _offsets(q: torch.Tensor, pts: torch.Tensor):
@@ -509,11 +555,11 @@ def chunks_per_step(w: int) -> int:
 
 # name -> (C entry, number of pointer arguments, number of int arguments)
 _ENTRIES = {
-    "refine_nn": ("pcc_refine_nn", 10, 4),
+    "refine_nn": ("pcc_refine_nn", 10, 5),
     "refine_nn_payload": ("pcc_refine_nn_payload", 8, 3),
     # K7, wrapped by ops/refine_adaptive.adaptive_refine
     "adaptive_refine": ("pcc_adaptive_refine", 9, 5),
-    "refine_knn": ("pcc_refine_knn", 10, 4),
+    "refine_knn": ("pcc_refine_knn", 10, 5),
     "knn_moments": ("pcc_knn_moments", 10, 2),
     "nn_brute": ("pcc_nn_brute", 6, 5),  # K5, wrapped by ops/nn.nn_argmin
     "select_bbox": ("pcc_select_bbox", 6, 4),  # K2a, ops/select.select_bbox
@@ -580,6 +626,7 @@ def refine_nn(
     init: Init = None,
     exclude_self: bool = False,
     expanded: bool = False,
+    splits: typing.Optional[int] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """K1 (see ``refine_nn_reference`` for the contract).
 
@@ -589,8 +636,13 @@ def refine_nn(
     index chunks of ``b_sorted`` / tiles of ``q_sorted``. With ``expanded``
     the kernel fuses the expanded form's multiply-adds, so it equals the
     plain version on the valid rows of clouds that pass ``Cloud.mxu_exact``
-    only. Each launch adds one to ``refine_nn.launches``.
+    only. Each tile's live slots are split over ``splits`` blocks of one
+    cluster (``split_count(nt, w, sm_count(device))`` when None; 1 forces
+    one block a tile),
+    which changes no result: an argument for the tests and chip_smoke.py,
+    not a knob. Each launch adds one to ``refine_nn.launches``.
     """
+    _check_splits(splits)
     if q_sorted.device.type == "cpu":
         return refine_nn_reference(q_sorted, b_sorted, b_orig, cand, tiles,
                                    ncand, init, exclude_self, expanded)
@@ -608,7 +660,9 @@ def refine_nn(
     _launch("refine_nn", q_sorted.device,
             [q_sorted, b_sorted, b_orig, cand, tiles, ncand, init_d, init_i,
              out_d, out_i], [nt, w, int(bool(exclude_self)),
-                             int(bool(expanded))])
+                             int(bool(expanded)),
+                             splits or split_count(nt, w,
+                                                   sm_count(q_sorted.device))])
     refine_nn.launches += 1
     return out_d, out_i
 
@@ -663,15 +717,18 @@ def refine_knn(
     ncand: Opt = None,
     init: Init = None,
     exclude_self: bool = False,
+    splits: typing.Optional[int] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """K3 (see ``refine_knn_reference`` for the contract).
 
     CPU tensors run the plain version. CUDA tensors launch the kernel on
     the current stream, or raise: the kernel takes float32 only, k <= 32,
     every tensor contiguous and on one device, and ``cand``/``tiles``
-    values must index chunks of ``b_sorted`` / tiles of ``q_sorted``. Each
+    values must index chunks of ``b_sorted`` / tiles of ``q_sorted``.
+    ``splits`` as in ``refine_nn``; the seed enters one split only. Each
     launch adds one to ``refine_knn.launches``.
     """
+    _check_splits(splits)
     if q_sorted.device.type == "cpu":
         return refine_knn_reference(q_sorted, b_sorted, b_orig, cand, k,
                                     tiles, ncand, init, exclude_self)
@@ -690,7 +747,8 @@ def refine_knn(
         return out_d, out_i
     _launch("refine_knn", dev,
             [q_sorted, b_sorted, b_orig, cand, tiles, ncand, init_d, init_i,
-             out_d, out_i], [nt, w, k, int(bool(exclude_self))])
+             out_d, out_i], [nt, w, k, int(bool(exclude_self)),
+                             splits or split_count(nt, w, sm_count(dev))])
     refine_knn.launches += 1
     return out_d, out_i
 

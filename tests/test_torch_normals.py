@@ -226,7 +226,9 @@ def test_cuda_estimation_matches_cpu(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the k-NN kernels have no CPU mode")
     monkeypatch.setattr(nops, "_PRUNE_THRESHOLD", 1024)
-    pts = _sphere(5000, 45)
+    # 24 tiles, a multiple of 8: the counted schedule runs K3 (with 20, the
+    # fixed one would run K3b and might launch no K3)
+    pts = _sphere(6000, 45)
     want = nops.estimate_normals_cloud(Cloud.from_numpy(pts, device="cpu"))
     c = Cloud.from_numpy(pts, device="cuda")
     before = (refine_knn.launches, knn_moments.launches)
