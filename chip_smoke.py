@@ -49,9 +49,11 @@ Hausdorff):
     (fixed, default, default, fixed), table and sweeps bit-identical to the
     default's, with a per-sweep split against the counted schedule; and
     ``PCC_NN_SCHED=fixed PCC_KNN_SCHED=fixed`` on the estimation path (K3b),
-    k-NN sets equal to the default's. Before them, K2c (800k and 2M, cap 32
-    and 512) against its plain version and a stable sort, K1b and K1c
-    against their plain version and K1 ungated, and K3b against its plain
+    k-NN sets equal to the default's, with one profiled cold call. Before
+    them, K2c (800k and 2M, cap 32, 64 and 512) against its plain version,
+    its first design (``rounds=True``) and a stable sort, K1b and K1c
+    against their plain version and K1 ungated, and K3b (800k a->a, float
+    and reconst b->b; with and without its slot skip) against its plain
     version and K3 ungated, on the fixed stage-1 tables. K1c has no caller
     in either package, so no path launches it.
 
@@ -70,13 +72,17 @@ It prints:
     K4 replayed alone, and one profiled cold call (wall, device-busy ms,
     idle share),
   * one ``prologue A/B`` line per pair size and a ``2M stage split`` line,
-  * the ``adaptive path``, ``payload path`` and ``float pair under
-    adaptive`` lines, and a ``schedule split`` line per pair size (each
-    sweep's time under each schedule with its kernels replayed alone),
+  * the ``adaptive path`` (with K7's launches by pass), ``payload path``
+    and ``float pair under adaptive`` lines, and a ``schedule split`` line
+    per pair size (each sweep's time under each schedule with its kernels
+    replayed alone),
+  * K2c phases with the first design's time (``rounds_ms``) and whether
+    the kernel is at or below the stable sort; K3b phases with the time
+    without the slot skip and both k-NN kernels' registers and blocks an
+    SM,
   * a ``{"kernels": [...]}`` JSON line (launches on the paths, error and
     times against the plain version, the bound from this run's shapes and
-    data, for K5 one PyTorch library call's time, and for K1 and K3 the
-    time PERF.md recorded for their first design), and last
+    data, and for K5 and K2c one PyTorch library call's time), and last
   * ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the exit code is non-zero and the last line is
@@ -234,15 +240,19 @@ def _live_pairs(cand, ncand):
     return live * 256 * 256
 
 
-def _skip_ops(q_points, b_points, cand, tiles, ncand, thresh, full=None):
-    """Operations K1 and K3 must do on this data, for their bound. A warp
-    skips a word (32 staged records) when every row's bound to the word's
-    box is above the row's threshold at that point, which never falls below
-    its final one, ``thresh`` (K1: the row's d; K3: its k-th d). So they
-    do, at least, a point-box bound (OPS_PER_BOUND) for each row and live
-    word, and OPS_PER_PAIR for each pair of a (warp, word) where some row
-    is bounded at or below ``thresh``. ``full``: a tile mask whose live
-    pairs K3 also walks once without skipping (its threshold pass)."""
+def _skip_ops(q_points, b_points, cand, tiles, ncand, thresh, full=None,
+              chunk_boxes=None):
+    """Operations K1, K3 and K3b must do on this data, for their bound. A
+    warp skips a word (32 staged records) when every row's bound to the
+    word's box is above the row's threshold at that point, which never
+    falls below its final one, ``thresh`` (K1: the row's d; K3: its k-th
+    d). So they do, at least, a point-box bound (OPS_PER_BOUND) for each
+    row and live word, and OPS_PER_PAIR for each pair of a (warp, word)
+    where some row is bounded at or below ``thresh``. ``full``: a tile mask
+    whose live pairs K3 also walks once without skipping (its threshold
+    pass). ``chunk_boxes`` (K3b's slot skip): each row bounds each slot's
+    chunk box instead, and only the slots some row of the tile is bounded
+    at or below ``thresh`` from cost their word bounds."""
     import torch
 
     nt, w = cand.shape
@@ -256,6 +266,7 @@ def _skip_ops(q_points, b_points, cand, tiles, ncand, thresh, full=None):
     th = thresh.reshape(nt, 256)
     step = max(1, 4096 // w)
     near_words = 0
+    bounded_slots = int(live.sum())  # slots whose 8 word boxes are bounded
     for i in range(0, nt, step):
         qq = q[t[i:i + step]][:, None, None]
         c = cand[i:i + step].long()
@@ -267,8 +278,19 @@ def _skip_ops(q_points, b_points, cand, tiles, ncand, thresh, full=None):
             *lb.shape[:3], 8, 32).any(-1)
         on = torch.arange(w, device=dev)[None, :] < live[i:i + step, None]
         near_words += int((near & on[:, :, None, None]).sum())
+        if chunk_boxes is not None:
+            qc = q[t[i:i + step]][:, None]
+            gap = torch.clamp(torch.maximum(qc - chunk_boxes[1][c][:, :, None],
+                                            chunk_boxes[0][c][:, :, None]
+                                            - qc), min=0)
+            sq = gap * gap
+            clb = (sq[..., 0] + sq[..., 1]) + sq[..., 2]  # (n, w, row)
+            needed = (clb <= th[i:i + step, None, :]).any(-1) & on
+            bounded_slots -= int((on & ~needed).sum())
     ops = (OPS_PER_PAIR * near_words * 32 * 32
-           + OPS_PER_BOUND * int(live.sum()) * 8 * 256)
+           + OPS_PER_BOUND * bounded_slots * 8 * 256)
+    if chunk_boxes is not None:
+        ops += OPS_PER_BOUND * int(live.sum()) * 256
     if full is not None:
         ops += OPS_PER_PAIR * int(live[full].sum()) * 256 * 256
     return ops
@@ -863,6 +885,32 @@ def cold_profile(origin, reconst, dev):
             "device_busy_ms": busy if busy > 0 else "not measured",
             "idle_share": 1 - busy / 1e3 / wall if busy > 0 else "not measured",
             "top_kernels_ms": dict(top)}
+
+
+@contextlib.contextmanager
+def _k7_passes(counts):
+    """Count K7's launches by pass in ``counts`` ({"P1", "P2", "P3"}) while
+    inside: the adaptive schedule's seeded call is P2, an unseeded call
+    over a tile's full lb order (every chunk of the search cloud) is P3,
+    any other P1."""
+    from open_pcc_metric_tpu_torch.ops import nn_pruned
+
+    real = nn_pruned.adaptive_refine
+
+    def spy(qhat, bhat, cand, *args, **kw):
+        if kw.get("init") is not None:
+            counts["P2"] += 1
+        elif cand.shape[1] == bhat.shape[1] // 256:
+            counts["P3"] += 1
+        else:
+            counts["P1"] += 1
+        return real(qhat, bhat, cand, *args, **kw)
+
+    nn_pruned.adaptive_refine = spy
+    try:
+        yield
+    finally:
+        nn_pruned.adaptive_refine = real
 
 
 def _rows_of(args, rows):
@@ -1856,9 +1904,10 @@ def k2c_phases(cases):
     """K2c against its plain version on the card, on the lb matrix of each
     case (name, query grid, search grid, valid queries, cap): picks
     bit-identical on every row, and equal to the stable sort's prefix
-    (``lb_order``) on every tile with a valid query. Library:
-    ``torch.sort(lb, dim=1, stable=True).indices[:, :cap]`` on the same
-    matrix. Bound: nta * ncb compares at the float32 rate against the
+    (``lb_order``) on every tile with a valid query; the first design
+    (``rounds=True``, its time ``rounds_ms``) gives the same picks.
+    Library: ``torch.sort(lb, dim=1, stable=True).indices[:, :cap]`` on the
+    same matrix. Bound: nta * ncb compares at the float32 rate against the
     matrix read once and the picks written once."""
     import torch
 
@@ -1879,16 +1928,22 @@ def k2c_phases(cases):
         if not _bit_equal(got[live], lb_order(lb[live])[:, :cap]):
             raise AssertionError(f"K2c phase {name}: a valid tile's picks are "
                                  "not its stable order's prefix")
+        if not _bit_equal(select_candidates(lb, cap, rounds=True), want):
+            raise AssertionError(f"K2c phase {name}: the first design's "
+                                 "picks differ from the plain version")
         nta, ncb = lb.shape
         bound_ms, bound_by = _bound(OPS_PICK * nta * ncb, [lb], [got])
         rec = {
             "phase": name, "tiles": nta, "chunks": ncb, "cap": cap,
             "empty_tiles": int((~live).sum()), "max_abs_err": 0.0,
             "ms": _time_ms(lambda: select_candidates(lb, cap), 20),
+            "rounds_ms": _time_ms(
+                lambda: select_candidates(lb, cap, rounds=True), 10),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": _time_ms(lambda: torch.sort(
                 lb, dim=1, stable=True).indices[:, :cap], 10),
         }
+        rec["at_or_below_sort"] = rec["ms"] <= rec["library_ms"]
         print("kernel phase K2c " + json.dumps(rec), flush=True)
         recs.append(rec)
     return recs
@@ -1943,24 +1998,34 @@ def straight_phases(cases):
 def knn_straight_phases(cases):
     """K3b against its plain version and K3 ungated on the card, on the
     fixed schedule's stage-1 table of each case (name, grid, valid queries;
-    self 30-NN, cap KCAP): d and id bit-identical to K3 on every row, and
-    to the plain version on the tiles with a valid query (K2c repeats
-    chunk 0 on the others, where the kernels keep repeated points and the
-    plain version does not)."""
+    self 30-NN, cap KCAP): d and id bit-identical to K3 and to K3b without
+    its slot skip on every row, and to the plain version on the tiles with
+    a valid query (K2c repeats chunk 0 on the others, where the kernels
+    keep repeated points and the plain version does not). ``ms`` is K3b as
+    the schedule calls it (with the chunk boxes), ``ms_no_slot_skip``
+    without; both kernels' registers and blocks an SM (CUDA runtime).
+    Bound: the operations the word and slot skips cannot avoid on this
+    data (``_skip_ops``) and the bytes the call reads."""
     import torch
 
     from open_pcc_metric_tpu_torch.ops.refine import (
-        refine_knn, refine_knn_straight, refine_knn_straight_reference)
+        occupancy, refine_knn, refine_knn_straight,
+        refine_knn_straight_reference)
 
     recs = []
+    occ = {n: occupancy(n) for n in ("refine_knn_straight", "refine_knn")}
     for name, g, n in cases:
         valid_t, _, cand = fixed_table(g, g, n, KCAP)
         args = (g.points, g.points, g.perm, cand, K)
-        got = refine_knn_straight(*args)
+        boxes = (g.bbox_lo, g.bbox_hi)
+        got = refine_knn_straight(*args, boxes=boxes)
+        unskipped = refine_knn_straight(*args)
         k3 = refine_knn(*args)
         torch.cuda.synchronize()
-        if not all(_bit_equal(x, y) for x, y in zip(got, k3)):
-            raise AssertionError(f"K3b phase {name}: differs from K3 ungated")
+        if not all(_bit_equal(x, y) and _bit_equal(x, z)
+                   for x, y, z in zip(got, k3, unskipped)):
+            raise AssertionError(f"K3b phase {name}: differs from K3 ungated "
+                                 "or from K3b without the slot skip")
         tiles = valid_t.any(dim=1).nonzero()[:, 0]
         sub = cand[tiles].contiguous()
         want, plain_ms = _once_ms(lambda: refine_knn_straight_reference(
@@ -1968,18 +2033,27 @@ def knn_straight_phases(cases):
         if not all(_bit_equal(x[tiles], y) for x, y in zip(got, want)):
             raise AssertionError(f"K3b phase {name}: valid tiles differ from "
                                  "the plain version")
-        bound_ms, bound_by = _bound(OPS_PER_PAIR * _live_pairs(cand, None),
-                                    args[:4], list(got))
+        bound_ms, bound_by = _bound_of(
+            _skip_ops(g.points, g.points, cand, None, None, got[0][..., -1],
+                      chunk_boxes=boxes),
+            _refine_bytes(*args[:4], None, None, None, got))
         rec = {
             "phase": name, "tiles": int(cand.shape[0]),
             "slots": int(cand.shape[1]),
-            "compared": (f"every row with K3 ungated; the {len(tiles)} tiles "
-                         "with a valid query with the plain version"),
+            "compared": (f"every row with K3 ungated and without the slot "
+                         f"skip; the {len(tiles)} tiles with a valid query "
+                         "with the plain version"),
             "plain_tiles": int(len(tiles)), "max_abs_err": 0.0,
-            "ms": _time_ms(lambda: refine_knn_straight(*args), 5),
+            "ms": _time_ms(lambda: refine_knn_straight(*args, boxes=boxes),
+                           5),
+            "ms_no_slot_skip": _time_ms(lambda: refine_knn_straight(*args), 5),
             "k3_ms": _time_ms(lambda: refine_knn(*args), 5),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
+            "registers": occ["refine_knn_straight"][0],
+            "blocks_per_sm": occ["refine_knn_straight"][1],
+            "k3_registers": occ["refine_knn"][0],
+            "k3_blocks_per_sm": occ["refine_knn"][1],
         }
         print("kernel phase K3b " + json.dumps(rec), flush=True)
         recs.append(rec)
@@ -2121,6 +2195,7 @@ def main() -> int:
     k2c_recs = k2c_phases([
         ("800k a->b", ga, gb, a.n, CAP), ("800k b->a", gb, ga, b.n, CAP),
         ("800k self a->a", ga, ga, a.n, CAP),
+        ("800k self a->a k-NN cap", ga, ga, a.n, KCAP),
         ("800k a->b escalated cap", ga, gb, a.n, 512),
     ])
     k1b_recs, k1c_recs = straight_phases([
@@ -2129,7 +2204,8 @@ def main() -> int:
         ("800k float a->b", gf, gb, fcloud.n, False),
     ])
     k3b_recs = knn_straight_phases([("800k a->a", ga, a.n),
-                                    ("800k float a->a", gf, fcloud.n)])
+                                    ("800k float a->a", gf, fcloud.n),
+                                    ("800k reconst b->b", gb, b.n)])
     del a, b, fcloud, ga, gb, gf
     torch.cuda.empty_cache()
 
@@ -2165,12 +2241,27 @@ def main() -> int:
 
     # The adaptive schedule (K7) and the payload schedule (K6) on the 800k
     # pair with normals, each in turns with the default; the ladder memo's
-    # key names the schedule, so no turn starts from another's rung.
+    # key names the schedule, so no turn starts from another's rung. K7's
+    # launches by pass are those of the first adaptive turn, the path's
+    # counted run.
+    k7_passes = {"P1": 0, "P2": 0, "P3": 0}
+    k7_first_turn = {}
+
+    def k1_never_and_k7_passes(launches):
+        k1_never(launches)
+        if not k7_first_turn:
+            k7_first_turn.update(k7_passes)
+            if sum(k7_first_turn.values()) != launches["adaptive_refine"]:
+                raise AssertionError("K7's passes do not add up to its "
+                                     "launches")
+
     want = _want_psnrs(origin, reconst, sweeps, origin[2], reconst[2])
-    (a, b), ad_launches, rec, table = schedule_path(
-        "the 800k adaptive path", ADAPTIVE_ENV, "adaptive_refine",
-        lambda: _pair_clouds(origin, reconst, dev), evaluate, RUNS, smi,
-        check_on=k1_never)
+    with _k7_passes(k7_passes):
+        (a, b), ad_launches, rec, table = schedule_path(
+            "the 800k adaptive path", ADAPTIVE_ENV, "adaptive_refine",
+            lambda: _pair_clouds(origin, reconst, dev), evaluate, RUNS, smi,
+            check_on=k1_never_and_k7_passes)
+    rec["k7_launches_by_pass"] = k7_first_turn
     same_table(table, "adaptive")
     rec["sweeps"] = schedule_sweeps(a, b, "800k", "adaptive", sweeps)
     rec["max_dpsnr_vs_oracle"] = max(_psnr_deltas(table, want).values())
@@ -2280,6 +2371,8 @@ def main() -> int:
                                  "no time")
     fx_checks = estimation_checks(ea, eb, origin, reconst, fx_result, sweeps,
                                   knn_oracle, sched="fixed")
+    with _env(FIXED_KNN_ENV):
+        fx_profile = cold_profile(origin, reconst, dev)
     print("fixed estimation path 800k " + json.dumps({
         "n_points": n_total, "env": FIXED_KNN_ENV, "first_call_s": fx_first,
         "times_s": fx_times, "median_s": statistics.median(fx_times),
@@ -2287,7 +2380,7 @@ def main() -> int:
         "default_median_s": est_med,
         "k3b_launches": fx_launches["refine_knn_straight"],
         "launches": {k: v for k, v in fx_launches.items() if v},
-        "checks": fx_checks, "card": smi,
+        "checks": fx_checks, "cold_profile": fx_profile, "card": smi,
     }), flush=True)
     del ea, eb
     torch.cuda.empty_cache()

@@ -17,28 +17,29 @@
 // Design, right and simple first: one block of 256 threads per tile, the
 // tile's box in registers, the chunk boxes read through L2 (24 bytes a
 // chunk, 196 KB at 8192 chunks, shared by every block). The cap-th
-// smallest key T is found by a radix select, 4 passes of 8 bits from the
-// top, each a 256-bin histogram in shared memory over the keys that match
-// the prefix so far (warp-aggregated atomics: most keys share their high
-// bytes), a block scan to pick the bin, and the bound recomputed in every
-// pass instead of stored, so no shared array caps ncb. Keys are unique, so
+// smallest key T is found by a radix select (pcc::radix_select,
+// pcc_select.cuh, shared with K2c), 4 passes of 8 bits from the top, each a
+// 256-bin histogram in shared memory over the keys that match the prefix
+// so far (warp-aggregated atomics: most keys share their high bytes), a
+// block scan to pick the bin, and the bound recomputed in every pass
+// instead of stored, so no shared array caps ncb. Keys are unique, so
 // exactly cap keys are <= T; a fifth pass writes them into the output row
-// in arrival order and a bitonic sort in place (in global memory, padded
-// virtually with +inf to a power of two, every comparator ascending) puts
-// them in order, so no shared array caps `cap` either. The selection
-// passes cost about 5x the bound's arithmetic; a faster version would keep
-// keys in registers or shared memory when ncb allows.
+// in arrival order and a bitonic sort in place (pcc::bitonic_sort, in
+// global memory, padded virtually with +inf to a power of two, every
+// comparator ascending) puts them in order, so no shared array caps `cap`
+// either. The selection passes cost about 5x the bound's arithmetic; a
+// faster version would keep keys in registers or shared memory when ncb
+// allows.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_build.py).
 
 #include "pcc_common.cuh"
+#include "pcc_select.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // one block per query tile
-constexpr int kBins = 256;     // 8 key bits per radix pass
-constexpr int kWarps = kThreads / 32;
 
 // Packed key of chunk c for the tile box (alo, ahi).
 __device__ __forceinline__ unsigned key_of(const float* alo, const float* ahi,
@@ -50,38 +51,17 @@ __device__ __forceinline__ unsigned key_of(const float* alo, const float* ahi,
   return (__float_as_uint(lb) & high) | static_cast<unsigned>(c);
 }
 
-// Inclusive scan of one int per thread over the 256-thread block.
-__device__ __forceinline__ int block_inclusive_scan(int v, int* warp_sums) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int n = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += n;
-  }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  int base = 0;
-  for (int w = 0; w < warp; ++w) base += warp_sums[w];
-  __syncthreads();  // warp_sums is free again
-  return v + base;
-}
-
 __global__ void __launch_bounds__(kThreads)
 select_bbox_kernel(const float* __restrict__ a_lo,
                    const float* __restrict__ a_hi,
                    const float* __restrict__ b_lo,
                    const float* __restrict__ b_hi, int ncb, int cap,
                    unsigned low, int* cand, float* lb_sel) {
-  __shared__ int hist[kBins];
-  __shared__ int warp_sums[kWarps];
-  __shared__ unsigned s_prefix;
-  __shared__ int s_rank;
+  __shared__ pcc::RadixScratch<kThreads> scratch;
   __shared__ int s_fill;
 
   const int64_t t = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const unsigned high = ~low;
   float alo[3], ahi[3];
 #pragma unroll
@@ -90,40 +70,10 @@ select_bbox_kernel(const float* __restrict__ a_lo,
     ahi[d] = a_hi[t * 3 + d];
   }
 
-  // Radix select of the cap-th smallest key (rank is 1-based among the
-  // keys that match `prefix` on the bits in `pmask`).
-  unsigned prefix = 0, pmask = 0;
-  int rank = cap;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    hist[tid] = 0;
-    __syncthreads();
-    // Every lane runs the same trip count, so the warp stays whole for
-    // __match_any_sync.
-    for (int base = 0; base < ncb; base += kThreads) {
-      const int c = base + tid;
-      int bin = -1;
-      if (c < ncb) {
-        const unsigned key = key_of(alo, ahi, b_lo, b_hi, c, high);
-        if ((key & pmask) == prefix) bin = (key >> shift) & 0xFF;
-      }
-      const unsigned peers = __match_any_sync(0xffffffffu, bin);
-      if (bin >= 0 && lane == __ffs(peers) - 1) {
-        atomicAdd(&hist[bin], __popc(peers));
-      }
-    }
-    __syncthreads();
-    const int h = hist[tid];
-    const int incl = block_inclusive_scan(h, warp_sums);
-    if (incl >= rank && incl - h < rank) {  // exactly one thread: bin tid
-      s_prefix = prefix | (static_cast<unsigned>(tid) << shift);
-      s_rank = rank - (incl - h);
-    }
-    __syncthreads();
-    prefix = s_prefix;
-    rank = s_rank;
-    pmask |= 0xFFu << shift;
-  }
-  const unsigned kth = prefix;  // the cap-th smallest key itself
+  // The cap-th smallest key itself (keys are unique).
+  const unsigned kth = pcc::radix_select<kThreads>(
+      ncb, cap,
+      [&](int c) { return key_of(alo, ahi, b_lo, b_hi, c, high); }, scratch);
 
   // The cap keys <= kth, in arrival order, into the output row.
   int* row = cand + t * cap;
@@ -134,35 +84,7 @@ select_bbox_kernel(const float* __restrict__ a_lo,
     if (key <= kth) row[atomicAdd(&s_fill, 1)] = static_cast<int>(key);
   }
   __syncthreads();
-
-  // Bitonic sort of row[0, cap) in place, ascending; the virtual entries
-  // [cap, n2) are +inf, so a comparator that reaches one changes nothing.
-  int n2 = 1;
-  while (n2 < cap) n2 <<= 1;
-  for (int size = 2; size <= n2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int p = tid; p < (n2 >> 1); p += kThreads) {
-        int i, j;
-        if (stride == (size >> 1)) {  // merge two sorted halves: mirror
-          const int blk = p / stride, off = p % stride;
-          i = blk * size + off;
-          j = blk * size + size - 1 - off;
-        } else {  // half-cleaner
-          const int blk = p / stride, off = p % stride;
-          i = blk * 2 * stride + off;
-          j = i + stride;
-        }
-        if (j < cap) {
-          const int x = row[i], y = row[j];
-          if (y < x) {
-            row[i] = y;
-            row[j] = x;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  pcc::bitonic_sort<kThreads>(row, cap);
 
   float* lrow = lb_sel + t * cap;
   for (int s = tid; s < cap; s += kThreads) {

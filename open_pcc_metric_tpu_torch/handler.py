@@ -5,13 +5,16 @@ Reference surface (open_pcc_metric/handler.py:4-43):
 
 Extensions: --color yuv, --color-hausdorff, --d2-mode {reference,pc_error},
 --peak/--resolution (pc_error's PSNR peak convention), --dtype, --backend,
-and --device (default cuda). A CUDA device that is not there is an error:
-the CLI never falls back to the CPU on its own.
+--trace-dir and --timings (as the JAX package's CLI: a torch.profiler
+trace, and the evaluation's wall time on stderr), and --device (default
+cuda). A CUDA device that is not there is an error: the CLI never falls
+back to the CPU on its own.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 import typing
 
 from .ops.nn import BACKENDS
@@ -51,6 +54,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "or pruned; auto takes the brute force below 65536 "
                         "padded rows and the pruned search above "
                         "(default: auto).")
+    p.add_argument("--trace-dir", default=None,
+                   help="Write a torch.profiler trace of the evaluation to "
+                        "this directory.")
+    p.add_argument("--timings", action="store_true",
+                   help="Print wall time and Mpoints/sec to stderr.")
     p.add_argument("--device", default="cuda",
                    help="Torch device to evaluate on (default: cuda).")
     return p
@@ -72,6 +80,7 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
 
     from .evaluate import evaluate_pair, load_cloud
     from .options import CalculateOptions
+    from .utils.profiling import mpoints_per_sec, trace
 
     options = CalculateOptions(
         color=args.color,
@@ -83,7 +92,16 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     )
     a = load_cloud(args.ocloud, dtype=args.dtype, device=device)
     b = load_cloud(args.pcloud, dtype=args.dtype, device=device)
-    result = evaluate_pair(a, b, options, backend=args.backend)
+    t0 = time.perf_counter()
+    with trace(args.trace_dir):
+        result = evaluate_pair(a, b, options, backend=args.backend)
+        if device.type == "cuda":  # the wall, not the launch queue
+            torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    if args.timings:
+        print(f"evaluated {a.n}+{b.n} points in {wall:.3f}s "
+              f"({mpoints_per_sec(a.n + b.n, wall):.3f} Mpoints/s)",
+              file=sys.stderr)
     if args.csv:
         print(result.to_csv())
     else:

@@ -23,7 +23,8 @@ entry points read ``PCC_KNN_SCHED``): "counted" (the probe and the gated,
 seeded extension) when cap > 8 and the tiles fill whole 8-tile groups,
 the JAX package's conditions, else "fixed": the lb matrix, K2c's ``cap``
 candidates and one ungated, unseeded K3b launch over every tile
-(``refine.refine_knn_straight``). K2c repeats column 0 on the rows of
+(``refine.refine_knn_straight``, given the search grid's chunk boxes so
+the kernel can skip slots). K2c repeats column 0 on the rows of
 tiles without a valid query, so K3b keeps repeated points there: those
 rows are discarded. The tiers and the moments pass walk the same prefixes
 on either schedule.
@@ -161,7 +162,8 @@ def knn_pruned_sorted(
         refined1 = p1 + ncand2  # each tile's refined prefix of ``order``
     else:
         dk, ik = refine_knn_straight(ga.points, gb.points, gb.perm, order, k,
-                                     exclude_self=exclude_self)
+                                     exclude_self=exclude_self,
+                                     boxes=(gb.bbox_lo, gb.bbox_hi))
 
     # ---- stage-1 certificate on the k-th distance
     ub_eff = kth_ub(dk, valid_t)

@@ -564,10 +564,10 @@ _ENTRIES = {
     "nn_brute": ("pcc_nn_brute", 6, 5),  # K5, wrapped by ops/nn.nn_argmin
     "select_bbox": ("pcc_select_bbox", 6, 4),  # K2a, ops/select.select_bbox
     "count_bbox": ("pcc_count_bbox", 6, 3),  # K2b, ops/select.count_bbox
-    "select_candidates": ("pcc_select_candidates", 2, 3),
+    "select_candidates": ("pcc_select_candidates", 2, 4),
     "refine_nn_straight": ("pcc_refine_nn_straight", 7, 4),
     "refine_nn_fused": ("pcc_refine_nn_fused", 7, 3),
-    "refine_knn_straight": ("pcc_refine_knn_straight", 7, 4),
+    "refine_knn_straight": ("pcc_refine_knn_straight", 9, 4),
 }
 
 
@@ -797,12 +797,16 @@ def knn_moments(
     return out
 
 
-def select_candidates(lb: torch.Tensor, cap: int) -> torch.Tensor:
+def select_candidates(lb: torch.Tensor, cap: int,
+                      rounds: bool = False) -> torch.Tensor:
     """K2c (see ``select_candidates_reference`` for the contract).
 
     CPU tensors run the plain version. CUDA tensors launch the kernel on
-    the current stream, or raise: float32 and contiguous only. Each launch
-    adds one to ``select_candidates.launches``.
+    the current stream, or raise: float32 and contiguous only. The kernel
+    takes a radix select when a row's keys and picks fit in shared memory,
+    else its first design (``cap`` rounds of a block argmin); ``rounds``
+    forces the first design (a test argument: both give the same picks).
+    Each launch adds one to ``select_candidates.launches``.
     """
     if lb.device.type == "cpu":
         return select_candidates_reference(lb, cap)
@@ -814,27 +818,28 @@ def select_candidates(lb: torch.Tensor, cap: int) -> torch.Tensor:
     out = torch.empty((nta, cap), dtype=torch.int32, device=lb.device)
     if nta == 0:
         return out
-    _launch("select_candidates", lb.device, [lb, out], [nta, ncb, cap])
+    _launch("select_candidates", lb.device, [lb, out],
+            [nta, ncb, cap, int(not rounds)])
     select_candidates.launches += 1
     return out
 
 
 def _launch_ungated(wrapper, q_sorted, b_sorted, b_orig, cand, tiles,
-                    out_shape, ints):
+                    out_shape, ints, extra=()):
     """The CUDA side of K1b, K1c and K3b: check the inputs, allocate the
     (d, id) outputs of ``out_shape`` and launch the kernel named after
-    ``wrapper`` (counting the launch on it) with the int arguments
-    (nt, w, *ints)."""
+    ``wrapper`` (counting the launch on it) with the pointer arguments
+    ``extra`` after ``tiles`` and the int arguments (nt, w, *ints)."""
     name = wrapper.__name__
     _check(q_sorted, b_sorted, b_orig, cand, tiles, None)
-    _cuda_checks(name, q_sorted, [b_sorted, b_orig, cand, tiles])
+    _cuda_checks(name, q_sorted, [b_sorted, b_orig, cand, tiles, *extra])
     dev = q_sorted.device
     out_d = torch.empty(out_shape, dtype=torch.float32, device=dev)
     out_i = torch.empty(out_shape, dtype=torch.int32, device=dev)
     nt, w = cand.shape
     if nt:
-        _launch(name, dev, [q_sorted, b_sorted, b_orig, cand, tiles, out_d,
-                            out_i], [nt, w, *ints])
+        _launch(name, dev, [q_sorted, b_sorted, b_orig, cand, tiles, *extra,
+                            out_d, out_i], [nt, w, *ints])
         wrapper.launches += 1
     return out_d, out_i
 
@@ -898,8 +903,14 @@ def refine_knn_straight(
     k: int,
     tiles: Opt = None,
     exclude_self: bool = False,
+    boxes: Init = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """K3b (see ``refine_knn_straight_reference`` for the contract).
+
+    ``boxes``: the search grid's chunk boxes (``bbox_lo``, ``bbox_hi``),
+    each (Pb / 256, 3) of the points' dtype, enclosing every record of
+    their chunk. The kernel then skips a slot that every row of a tile is
+    bounded away from; the result is the same with or without them.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel on
     the current stream, or raise: float32 only, k <= 32, every tensor
@@ -907,13 +918,37 @@ def refine_knn_straight(
     chunks of ``b_sorted`` / tiles of ``q_sorted``. Each launch adds one to
     ``refine_knn_straight.launches``.
     """
+    if boxes is not None:
+        shape = (b_sorted.shape[0] // CHUNK, 3)
+        if len(boxes) != 2 or any(tuple(x.shape) != shape
+                                  or x.dtype != b_sorted.dtype
+                                  for x in boxes):
+            raise ValueError(f"boxes must be two {shape} tensors of the "
+                             "points' dtype")
     if q_sorted.device.type == "cpu":
         return refine_knn_straight_reference(q_sorted, b_sorted, b_orig,
                                              cand, k, tiles, exclude_self)
     _check_k(k)
     return _launch_ungated(refine_knn_straight, q_sorted, b_sorted, b_orig,
                            cand, tiles, (cand.shape[0], CHUNK, k),
-                           [k, int(bool(exclude_self))])
+                           [k, int(bool(exclude_self))],
+                           extra=boxes if boxes is not None else (None, None))
+
+
+def occupancy(name: str) -> typing.Tuple[int, int]:
+    """(registers a thread, resident blocks an SM) of the kernel ``name``
+    (``refine_knn`` at one block a tile, or ``refine_knn_straight``) on the
+    current CUDA device, from the CUDA runtime."""
+    from . import _build
+
+    fn = getattr(_build.load(name).lib, f"pcc_{name}_occupancy")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = fn(ctypes.byref(regs), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"{name} occupancy query failed ({rc})")
+    return regs.value, blocks.value
 
 
 refine_nn.launches = 0

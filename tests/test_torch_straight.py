@@ -13,24 +13,31 @@ XLA:CPU contracts the interpret-mode kernels' multiply-adds into FMAs,
 eager PyTorch does not, and the CUDA kernels equal the plain versions bit
 for bit on every cloud.
 
+K2c's closed form is also held to the TPU kernel's rounds on adversarial
+rows (ties, signed zeros, negative values, few finite entries, wide rows),
+and K3b's design to a plain model of what it drops: the range bound of
+its first step and the slots it skips by their chunk box.
+
 The CUDA kernels are checked against the plain versions (and K1b, K1c and
-K3b against K1 and K3 ungated) by the tests marked ``cuda`` (skipped
-without a card) and by chip_smoke.py.
+K3b against K1 and K3 ungated, K2c's radix select against its first
+design) by the tests marked ``cuda`` (skipped without a card) and by
+chip_smoke.py.
 """
 import numpy as np
 import pytest
 import torch
 
 from open_pcc_metric_tpu_torch.cloud import Cloud
-from open_pcc_metric_tpu_torch.ops.grid import CHUNK
+from open_pcc_metric_tpu_torch.ops.grid import CHUNK, bbox_lower_bounds
 from open_pcc_metric_tpu_torch.ops.nn_pruned import tile_bounds
 from open_pcc_metric_tpu_torch.ops.refine import (
-    chunks_per_step, refine_knn, refine_knn_straight,
+    INT_MAX, _extract_k, chunks_per_step, refine_knn, refine_knn_straight,
     refine_knn_straight_reference, refine_nn, refine_nn_fused,
     refine_nn_straight, refine_nn_straight_reference, select_candidates,
     select_candidates_reference)
 
 from test_torch_refine import _compare, jax_on_cpu
+from test_torch_refine_split import _candidates, _lex_below
 
 K = 30
 N_TILES = 12
@@ -211,6 +218,104 @@ def test_cpu_dispatch_and_validation():
     assert [chunks_per_step(w) for w in (32, 12, 6, 7, 512)] == [8, 4, 2, 1, 8]
 
 
+def _adversarial_rows():
+    """(name, lb, cap) for K2c: rows that a key, a sort or a tie rule can
+    get wrong."""
+    rng = np.random.default_rng(93)
+    inf = np.float32(np.inf)
+    few = rng.integers(0, 5, (6, 96)).astype(np.float32)
+    few[0, 20:] = inf  # f < cap
+    few[1, 32:] = inf  # f == cap
+    few[2] = inf  # f == 0
+    few[3, rng.permutation(96)[:70]] = inf
+    neg = rng.normal(0.0, 100.0, (6, 1000)).astype(np.float32)
+    neg[:, ::7] = np.round(neg[:, ::7])  # ties among negatives
+    neg[1, ::5] = -inf
+    neg[2, ::3] = inf
+    wide = rng.integers(0, 200, (8, 1920)).astype(np.float32)
+    wide[3] = inf
+    wide[5, 300:] = inf  # f < 512
+    return [
+        ("all ties", np.full((4, 300), 7.0, np.float32), 40),
+        ("signed zeros", rng.choice(np.array([-0.0, 0.0, 1.0], np.float32),
+                                    (6, 257)), 64),
+        ("negative values", neg, 48),
+        ("few finite", few, 32),
+        ("cap == ncb", few[3:], 96),
+        ("cap > ncb", few, 100),
+        ("cap 512", wide, 512),
+        ("ncb 37", rng.integers(0, 4, (9, 37)).astype(np.float32), 5),
+    ]
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_select_candidates_adversarial_rows_equal_the_loop(case):
+    """K2c's plain version against the TPU kernel's rounds on the rows the
+    card tests give the kernel: -0.0 and +0.0 tie (the lower column
+    first), negative values and -inf order below the rest."""
+    _, lb, cap = _adversarial_rows()[case]
+    got = select_candidates_reference(torch.from_numpy(lb), cap)
+    np.testing.assert_array_equal(got.numpy(), _select_loop(lb, cap))
+
+
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_knn_straight_design_drops_no_member(exclude_self):
+    """K3b's design on an integer lattice full of ties: T, the k-th
+    smallest of the two smallest d of each of 32 strided groups over the
+    first step's 8 chunks (self column excluded), is never below a row's
+    final k-th distance; and dropping every candidate not below (T,
+    INT32_MAX), then every later slot whose chunk box every row of its tile
+    is bounded beyond T from, leaves the k-best unchanged."""
+    k, step = K, 8
+    qg, bg, cand = _tables("int", exclude_self, 12, hi=16)
+    args = (qg.points, bg.points, bg.perm, cand)
+    nt, w = cand.shape
+    want = refine_knn_straight_reference(*args, k, exclude_self=exclude_self)
+    d, ids = _candidates(*args, torch.full((nt,), w, dtype=torch.int32),
+                         None, exclude_self)
+    slot = torch.arange(w * CHUNK) // CHUNK
+    first = torch.where(slot < step, d, torch.inf)
+    two = first.reshape(nt, CHUNK, -1, 32).topk(2, dim=2, largest=False)[0]
+    td = two.reshape(nt, CHUNK, 64).sort(dim=2).values[..., k - 1]
+    assert bool((td >= want[0][..., -1]).all())
+    lb = bbox_lower_bounds(qg.points, qg.points, bg.bbox_lo, bg.bbox_hi)
+    lb = lb.reshape(nt, CHUNK, -1).gather(
+        2, cand.long()[:, None, :].expand(nt, CHUNK, w))
+    needed = (lb <= td[..., None]).any(dim=1)  # (nt, w) slots some row needs
+    needed[:, :step] = True
+    keep = (needed.repeat_interleave(CHUNK, dim=1)[:, None, :]
+            & _lex_below(d, ids, td[..., None], INT_MAX))
+    assert int((~needed).sum()) > 0  # some slot is skipped
+    assert int((~keep & torch.isfinite(d)).sum()) > 0  # the bound bites
+    got = refine_knn_straight(*args, k, exclude_self=exclude_self,
+                              boxes=(bg.bbox_lo, bg.bbox_hi))
+    model = _extract_k(torch.where(keep, d, torch.inf),
+                       torch.where(keep, ids, INT_MAX), k)
+    for x, y, z in zip(model, want, got):
+        assert torch.equal(x, y) and torch.equal(y, z)
+
+
+def test_knn_straight_boxes_cpu_dispatch_and_validation():
+    """K3b's chunk boxes: on CPU tensors the wrapper is the plain version
+    with or without them and counts no launch; boxes of another shape or
+    dtype raise, on every device."""
+    qg, bg, cand = _tables("int", False, 6)
+    args = (qg.points, bg.points, bg.perm, cand)
+    before = refine_knn_straight.launches
+    want = refine_knn_straight_reference(*args, 8)
+    got = refine_knn_straight(*args, 8, boxes=(bg.bbox_lo, bg.bbox_hi))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert refine_knn_straight.launches == before
+    for boxes in ((bg.bbox_lo,), (bg.bbox_lo[:-1], bg.bbox_hi[:-1]),
+                  (bg.bbox_lo.double(), bg.bbox_hi.double()),
+                  (bg.bbox_lo, bg.bbox_hi.reshape(-1))):
+        with pytest.raises(ValueError):
+            refine_knn_straight(*args, 8, boxes=boxes)
+    lb = torch.rand(5, 7)
+    assert torch.equal(select_candidates(lb, 3, rounds=True),
+                       select_candidates_reference(lb, 3))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -281,3 +386,57 @@ def test_cuda_straight_refines_match_plain_version(kind, cuda_device):
                 k3 = refine_knn(*args, k, **kw)
                 assert all(_bit_equal(x, y) for x, y in zip(got, want_k))
                 assert all(_bit_equal(x, y) for x, y in zip(got, k3))
+
+
+@pytest.mark.cuda
+def test_cuda_select_candidates_adversarial_rows(cuda_device):
+    """K2c's radix select and its first design on the card against the
+    plain version on the CPU (a comparison sort: -0.0 and +0.0 tie) on the
+    adversarial rows, and a row whose keys and picks pass the shared-memory
+    limit while the first design still stages it (ncb 57300, cap 64)."""
+    cases = [(lb, cap) for _, lb, cap in _adversarial_rows()]
+    rng = np.random.default_rng(94)
+    lb = rng.integers(0, 30, (3, 57300)).astype(np.float32)
+    lb[1, 1000:] = np.inf
+    cases.append((lb, 64))
+    for lb, cap in cases:
+        want = select_candidates_reference(torch.from_numpy(lb), cap)
+        lb = torch.from_numpy(lb).to(cuda_device)
+        for rounds in (False, True):
+            before = select_candidates.launches
+            got = select_candidates(lb, cap, rounds=rounds)
+            torch.cuda.synchronize()
+            assert select_candidates.launches == before + 1
+            assert torch.equal(got.cpu(), want), (lb.shape, cap, rounds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lattice", "jittered"])
+def test_cuda_refine_knn_straight_steps_and_slot_skip(kind, cuda_device):
+    """K3b on a 40-chunk table (5 steps of 8 slots, the last partial) on the
+    card: d and id bit-identical to its plain version and to K3 ungated,
+    for k in {1, 8, 30, 32}, cross and self, with and without the chunk
+    boxes (the slot skip), on a lattice full of ties and a jittered cloud."""
+    rng = np.random.default_rng(95)
+    pts = rng.integers(0, 48, (10000, 3)).astype(np.float64)
+    if kind == "jittered":
+        pts += rng.uniform(-0.5, 0.5, pts.shape)
+    c = Cloud.from_numpy(pts, pad_to=40 * CHUNK, device="cpu")
+    g = _to(c.get_grid(build="device"), cuda_device)
+    other = Cloud.from_numpy(pts[::2] + 0.25, pad_to=40 * CHUNK, device="cpu")
+    go = _to(other.get_grid(build="device"), cuda_device)
+    for gb, exclude_self in ((g, True), (go, False)):
+        _, _, order = tile_bounds(g, gb, c.n)
+        cand = order[:, :37].contiguous()
+        args = (g.points, gb.points, gb.perm, cand)
+        for k in (1, 8, 30, 32):
+            want = refine_knn_straight_reference(*args, k,
+                                                 exclude_self=exclude_self)
+            k3 = refine_knn(*args, k, exclude_self=exclude_self)
+            for boxes in (None, (gb.bbox_lo, gb.bbox_hi)):
+                got = refine_knn_straight(*args, k, exclude_self=exclude_self,
+                                          boxes=boxes)
+                torch.cuda.synchronize()
+                for x, y, z in zip(got, want, k3):
+                    assert _bit_equal(x, y) and _bit_equal(x, z), (
+                        kind, exclude_self, k, boxes is None)
