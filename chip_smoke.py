@@ -63,14 +63,18 @@ It prints:
   * each kernel's build time and ptxas resource lines,
   * one line per kernel phase, one timing line per path, with its checks
     (K7 and K1-expanded phases compare valid rows: their fused
-    multiply-adds round sentinel rows otherwise); K1 and K3 phases give the
-    split count and the blocks launched, and the tier-B phases (K1's of
-    the three 800k sweeps, K3's of the 800k a->a k-NN, captured from real
-    searches) run at the automatic split count and at one block a tile,
-    both bit-identical to the plain version,
+    multiply-adds round sentinel rows otherwise); K1, K3 and K4 phases
+    give the split count and the blocks launched, and the tier-B phases
+    (K1's of the three 800k sweeps, K3's and K4's of the 800k a->a k-NN,
+    captured from real searches) run at the automatic split count and at
+    one block a tile, K1 and K3 bit-identical to the plain version; every
+    K4 phase also runs without its slot skip, with equal member counts and
+    sums within MOM_RTOL/MOM_ATOL; the K5 phases give the query rows a
+    thread, split, registers and blocks an SM, and the a->b phase times
+    each row count K5 is built for,
   * on the estimation path line, each cloud's k-NN with every K3 pass and
-    K4 replayed alone, and one profiled cold call (wall, device-busy ms,
-    idle share),
+    every K4 pass replayed alone, and one profiled cold call (wall,
+    device-busy ms, idle share),
   * one ``prologue A/B`` line per pair size and a ``2M stage split`` line,
   * the ``adaptive path`` (with K7's launches by pass), ``payload path``
     and ``float pair under adaptive`` lines, and a ``schedule split`` line
@@ -109,7 +113,10 @@ EST_RUNS = 3
 CAP, FALLBACK, P1 = 32, 256, 8  # the main path's base rung and probe width
 K, KCAP, KFT = 30, 64, 256  # the estimation's k and base rung
 PLAIN_BUDGET_S = 60.0  # a plain phase predicted slower runs on a subset
-MOM_RTOL, MOM_ATOL = 1e-6, 1e-4  # K4 vs plain: float32 summation order
+# K4 vs plain, float32 summation order: a row of at most K members within
+# MOM_RTOL/MOM_ATOL, a row of n > K (a padded query row tied at d == rk with
+# thousands of records) within rtol n * 2**-23 (csrc/knn_moments.cu)
+MOM_RTOL, MOM_ATOL = 1e-6, 1e-4
 D2_TOL, PSNR_TOL = 5e-3, 1e-4  # dB; D2 with estimated normals, the rest
 ENGINE_RTOL = 1e-6  # DAG vs fused: the same exact NN terms, summed apart
 KERNELS = {
@@ -242,15 +249,16 @@ def _live_pairs(cand, ncand):
 
 def _skip_ops(q_points, b_points, cand, tiles, ncand, thresh, full=None,
               chunk_boxes=None):
-    """Operations K1, K3 and K3b must do on this data, for their bound. A
-    warp skips a word (32 staged records) when every row's bound to the
+    """Operations K1, K3, K3b and K4 must do on this data, for their bound.
+    A warp skips a word (32 staged records) when every row's bound to the
     word's box is above the row's threshold at that point, which never
-    falls below its final one, ``thresh`` (K1: the row's d; K3: its k-th
-    d). So they do, at least, a point-box bound (OPS_PER_BOUND) for each
+    falls below its final one, ``thresh`` (K1: the row's d; K3 and K4: its
+    k-th d, final on K4's entry). So they do, at least, a point-box bound (OPS_PER_BOUND) for each
     row and live word, and OPS_PER_PAIR for each pair of a (warp, word)
     where some row is bounded at or below ``thresh``. ``full``: a tile mask
     whose live pairs K3 also walks once without skipping (its threshold
-    pass). ``chunk_boxes`` (K3b's slot skip): each row bounds each slot's
+    pass). ``chunk_boxes`` (K3b's and K4's slot skip): each row bounds each
+    slot's
     chunk box instead, and only the slots some row of the tile is bounded
     at or below ``thresh`` from cost their word bounds."""
     import torch
@@ -560,18 +568,18 @@ def knn_phases(a, float_cloud):
     p1 8): the probe, the gated seeded extension, tier A on compacted
     tiles, K4 stage 1, a K4 tier, and one float-cloud probe.
 
-    K3 must be bit-identical in d and id. K4 must count the same members
-    (exactly k on every valid row once the tier has run) and agree on the
-    other sums within MOM_RTOL/MOM_ATOL. A plain call predicted to pass
-    PLAIN_BUDGET_S runs on a stated subset of tiles that holds the 64
-    with the most live slots. Returns (K3 records, K4 records).
+    K3 must be bit-identical in d and id. K4 (``moments_phase``) must
+    count the same members (exactly k on every valid row once the tier has
+    run) and agree on the other sums within MOM_RTOL/MOM_ATOL. A plain K3
+    call predicted to pass PLAIN_BUDGET_S runs on a stated subset of tiles
+    that holds the 64 with the most live slots. Returns (K3 records, K4
+    records).
     """
     import torch
 
     from open_pcc_metric_tpu_torch.ops.nn_pruned import stable_top, tile_bounds
     from open_pcc_metric_tpu_torch.ops.refine import (
-        knn_moments, knn_moments_reference, refine_knn, refine_knn_reference,
-        sm_count, split_count)
+        refine_knn, refine_knn_reference, sm_count, split_count)
 
     dev = a.points.device
 
@@ -589,8 +597,7 @@ def knn_phases(a, float_cloud):
             init=None, grid=None, **kw):
         """Kernel on the full call, plain on the full call or a subset,
         over ``grid`` (cloud a's by default). The bound counts K3's
-        unskippable operations (``_skip_ops``) and, for K4, OPS_PER_PAIR
-        per visited pair and OPS_PER_MEMBER per k-NN member it sums."""
+        unskippable operations (``_skip_ops``) and the bytes it reads."""
         grid = grid or g
         nt = cand.shape[0]
         args = dict(kw, tiles=tiles, init=init)
@@ -616,34 +623,24 @@ def knn_phases(a, float_cloud):
                     f"{predicted_s:.0f} s")
         else:
             want, plain_ms = _once_ms(lambda: plain(cand=cand, **args))
-        got = tuple(x[rows] for x in out) if isinstance(out, tuple) else out[rows]
+        got = tuple(x[rows] for x in out)
         err = compare(name, got, want)
-        if isinstance(out, tuple):  # K3: the threshold pass when open
-            full = (torch.ones(nt, dtype=torch.bool, device=dev)
-                    if init is None else torch.isinf(init[0][..., -1]).any(1))
-            bound_ms, bound_by = _bound_of(
-                _skip_ops(grid.points, grid.points, cand, tiles, ncand,
-                          out[0][..., -1], full),
-                _refine_bytes(grid.points, grid.points, grid.perm, cand,
-                              tiles, ncand, init, out))
-        else:  # K4: members counted in channel 0
-            members = out[..., 0].sum() - (0 if init is None
-                                           else init[..., 0].sum())
-            bound_ms, bound_by = _bound(
-                OPS_PER_PAIR * _live_pairs(cand, ncand)
-                + OPS_PER_MEMBER * float(members),
-                [cand, ncand, tiles, init, *kw.values(), grid.points,
-                 grid.perm], [out])
+        # the threshold pass when a buffer starts open
+        full = (torch.ones(nt, dtype=torch.bool, device=dev)
+                if init is None else torch.isinf(init[0][..., -1]).any(1))
+        bound_ms, bound_by = _bound_of(
+            _skip_ops(grid.points, grid.points, cand, tiles, ncand,
+                      out[0][..., -1], full),
+            _refine_bytes(grid.points, grid.points, grid.perm, cand,
+                          tiles, ncand, init, out))
         rec = {
             "phase": name, "tiles": int(nt), "slots": int(cand.shape[1]),
             "max_abs_err": err,
             "ms": _time_ms(lambda: kernel(cand=cand, **args), 5),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         }
-        if kernel is not k4:  # K3: its split count and blocks
-            rec["splits"] = split_count(nt, int(cand.shape[1]),
-                                        sm_count(dev))
-            rec["blocks"] = int(nt) * rec["splits"]
+        rec["splits"] = split_count(nt, int(cand.shape[1]), sm_count(dev))
+        rec["blocks"] = int(nt) * rec["splits"]
         if note:
             rec["plain_subset"] = note
             rec["plain_subset_ms"] = sub_ms
@@ -658,18 +655,6 @@ def knn_phases(a, float_cloud):
                 "refine_knn_reference")
         return 0.0
 
-    def mom_compare(name, got, want):
-        if not torch.equal(got[..., 0], want[..., 0]):
-            bad = int((got[..., 0] != want[..., 0]).sum())
-            raise AssertionError(f"K4 phase {name}: {bad} member counts "
-                                 "differ from knn_moments_reference")
-        err = (got - want).abs()
-        bound = MOM_ATOL + MOM_RTOL * want.abs()
-        if not bool((err <= bound).all()):
-            raise AssertionError(f"K4 phase {name}: sums off by up to "
-                                 f"{float(err.max())}")
-        return float(err.max())
-
     g = a.get_grid()
     valid_t, lb, order = tile_bounds(g, g, a.n)
     ncb = g.n_chunks
@@ -680,13 +665,6 @@ def knn_phases(a, float_cloud):
     def k3_plain(cand, **kw):
         return refine_knn_reference(g.points, g.points, g.perm,
                                     cand.contiguous(), K, **kw)
-
-    def k4(cand, **kw):
-        return knn_moments(g.points, g.points, g.perm, cand.contiguous(), **kw)
-
-    def k4_plain(cand, **kw):
-        return knn_moments_reference(g.points, g.points, g.perm,
-                                     cand.contiguous(), **kw)
 
     k3_recs, k4_recs = [], []
     (d1, i1), rec = run("knn probe a->a", k3, k3_plain, knn_compare,
@@ -713,16 +691,17 @@ def knn_phases(a, float_cloud):
 
     rk, rid = dk[:, :, -1].contiguous(), ik[:, :, -1].contiguous()
     countsf = _counts_of(rk, lb, valid_t)
-    mom, rec = run("moments stage 1 a->a", k4, k4_plain, mom_compare,
-                   order[:, :KCAP], ncand=torch.clamp(countsf, max=KCAP).int(),
-                   rk=rk, ik=rid)
+    boxes = (g.bbox_lo, g.bbox_hi)
+    mom, rec = moments_phase("moments stage 1 a->a", (
+        g.points, g.points, g.perm, order[:, :KCAP].contiguous(),
+        torch.clamp(countsf, max=KCAP).int(), rk, rid), dict(boxes=boxes))
     k4_recs.append(rec)
     cf = countsf[otiles]
     ncm = torch.where(cf > KCAP, torch.clamp(cf, max=cap2a) - KCAP, 0).int()
-    part, rec = run("moments tier A a->a (compacted)", k4, k4_plain,
-                    mom_compare, order[otiles, KCAP:cap2a], ncand=ncm,
-                    tiles=otiles.int(), rk=rk[otiles].contiguous(),
-                    ik=rid[otiles].contiguous(), init=mom[otiles].contiguous())
+    part, rec = moments_phase("moments tier A a->a (compacted)", (
+        g.points, g.points, g.perm, order[otiles, KCAP:cap2a].contiguous(),
+        ncm, rk[otiles].contiguous(), rid[otiles].contiguous()),
+        dict(tiles=otiles.int(), init=mom[otiles].contiguous(), boxes=boxes))
     k4_recs.append(rec)
     mom = mom.index_copy(0, otiles, part)
     # Every valid row whose tile the two passes cover counts exactly k.
@@ -754,14 +733,90 @@ def knn_phases(a, float_cloud):
     return k3_recs, k4_recs
 
 
+def _mom_err(label, got, want):
+    """Largest |sum| error of K4 against the plain version; raises unless
+    the member counts are equal and every row's sums are within MOM_ATOL +
+    rtol |want|, rtol MOM_RTOL on a row of at most K members and n * 2**-23
+    on a row of n > K."""
+    import torch
+
+    if not torch.equal(got[..., 0], want[..., 0]):
+        bad = int((got[..., 0] != want[..., 0]).sum())
+        raise AssertionError(f"{label}: {bad} member counts differ from "
+                             "knn_moments_reference")
+    cnt = want[..., :1]
+    rtol = torch.where(cnt <= K, torch.full_like(cnt, MOM_RTOL),
+                       cnt * 2.0 ** -23)
+    err = (got - want).abs()
+    if not bool((err <= MOM_ATOL + rtol * want.abs()).all()):
+        raise AssertionError(f"{label}: sums off by up to {float(err.max())}")
+    return float(err.max())
+
+
+def moments_phase(label, args, kw):
+    """K4 on one call, ``args`` = (q, b, perm, cand, ncand, rk, ik) and
+    ``kw`` (tiles, init, boxes) as knn_pruned_sorted makes it, against
+    knn_moments_reference on the card: at the automatic split and at
+    ``splits=1``, each with member counts equal and sums within the
+    tolerance of ``_mom_err``.
+    Bound: the operations the word and slot skips cannot avoid against the
+    final rk (``_skip_ops``) plus OPS_PER_MEMBER a member, and the bytes the
+    call reads (``_refine_bytes``, with rk and ik); the all-pairs bound of
+    the first design's records beside it. Returns (the automatic split's
+    output, the record)."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.refine import (
+        knn_moments, knn_moments_reference, occupancy, sm_count, split_count)
+
+    q, b, perm, cand, ncand, rk, ik = args
+    tiles, init, boxes = kw.get("tiles"), kw.get("init"), kw.get("boxes")
+    variants = {"auto": {}, "splits=1": {"splits": 1}}
+    got = {v: knn_moments(*args, **dict(kw, **x)) for v, x in variants.items()}
+    torch.cuda.synchronize()
+    plain_kw = {k: v for k, v in kw.items() if k != "boxes"}
+    want, plain_ms = _once_ms(lambda: knn_moments_reference(*args, **plain_kw))
+    err = max(_mom_err(f"K4 phase {label} ({v})", out, want)
+              for v, out in got.items())
+    members = float(got["auto"][..., 0].sum()) - (
+        0.0 if init is None else float(init[..., 0].sum()))
+    nbytes = _refine_bytes(q, b, perm, cand, tiles, ncand,
+                           None if init is None else (init,),
+                           (got["auto"], rk, ik))
+    bound_ms, bound_by = _bound_of(
+        _skip_ops(q, b, cand, tiles, ncand, rk, chunk_boxes=boxes)
+        + OPS_PER_MEMBER * members, nbytes)
+    nt, w = cand.shape
+    splits = split_count(nt, w, sm_count(cand.device))
+    live = torch.clamp(ncand, 0, w)
+    regs, per_sm = occupancy("knn_moments")
+    rec = {
+        "phase": label, "tiles": int(nt), "slots": int(w),
+        "live_slots": int(live.sum()), "max_live_slots": int(live.max()),
+        "splits": splits, "blocks": int(nt) * splits, "max_abs_err": err,
+        "compared": "every row, at the automatic split and at splits=1",
+        "ms": _time_ms(lambda: knn_moments(*args, **kw), 10),
+        "ms_splits_1": _time_ms(lambda: knn_moments(*args, splits=1, **kw),
+                                10),
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_all_pairs_ms": _bound_of(
+            OPS_PER_PAIR * _live_pairs(cand, ncand)
+            + OPS_PER_MEMBER * members, nbytes)[0],
+        "library_ms": None, "registers": regs, "blocks_per_sm": per_sm,
+    }
+    print("kernel phase K4 " + json.dumps(rec), flush=True)
+    return got["auto"], rec
+
+
 def tail_phases(a, b):
     """The tier-B calls of real 800k searches at the base rungs, against
     their plain versions on the card: K1's of the a->b, b->a and self
-    sweeps (cap CAP, fallback FALLBACK) and K3's of the a->a estimation
-    k-NN (k K, cap KCAP, fallback KFT), captured as the schedules make
-    them. Each runs at the automatic split count and at one block a tile
-    (``splits=1``) in this run; both must be bit-identical to the plain
-    version in d and id. Returns (K1 records, K3 records)."""
+    sweeps (cap CAP, fallback FALLBACK), and K3's and K4's of the a->a
+    estimation k-NN with moments (k K, cap KCAP, fallback KFT), captured as
+    the schedules make them. Each runs at the automatic split count and at
+    one block a tile (``splits=1``) in this run; K1 and K3 must be
+    bit-identical to the plain version in d and id, K4 as
+    ``moments_phase`` says. Returns (K1, K3, K4 records)."""
     import torch
 
     from open_pcc_metric_tpu_torch.ops import knn_pruned, nn_pruned
@@ -814,21 +869,28 @@ def tail_phases(a, b):
             raise AssertionError(f"the 800k {name} sweep ran no tier B")
         k1.append(phase(f"tier B {name}", refine_nn, refine_nn_reference,
                         calls["tier B"]))
-    calls = _passes(_calls(["refine_knn"], lambda: knn_pruned.knn_pruned_sorted(
-        ga, ga, a.n, K, cap=KCAP, fallback_tiles=KFT),
-        knn_pruned)["refine_knn"])
-    if "tier B" not in calls:
+    calls = _calls(["refine_knn", "knn_moments"],
+                   lambda: knn_pruned.knn_pruned_sorted(
+                       ga, ga, a.n, K, cap=KCAP, fallback_tiles=KFT,
+                       with_moments=True), knn_pruned)
+    k3_calls = _passes(calls["refine_knn"])
+    if "tier B" not in k3_calls:
         raise AssertionError("the 800k a->a k-NN ran no tier B")
     k3 = [phase("knn tier B a->a", refine_knn, refine_knn_reference,
-                calls["tier B"])]
-    return k1, k3
+                k3_calls["tier B"])]
+    k4_calls = dict(zip(MOMENT_PASSES, calls["knn_moments"]))
+    if len(calls["knn_moments"]) != len(MOMENT_PASSES):
+        raise AssertionError(f"{len(calls['knn_moments'])} K4 calls in the "
+                             "800k a->a k-NN, not one a pass")
+    k4 = [moments_phase("moments tier B a->a", *k4_calls["tier B"])[1]]
+    return k1, k3, k4
 
 
 def estimation_split(clouds, smi):
     """Each cloud's 30-NN of the estimation (counted schedule, base rung
     KCAP, KFT, with moments): its stream time, each K3 pass replayed alone
-    (with its split count) and K4's launches replayed alone. CUDA events,
-    mean of 5."""
+    (with its split count) and K4's launches replayed alone, together and
+    by pass (with their split counts). CUDA events, mean of 5."""
     from open_pcc_metric_tpu_torch.ops import knn_pruned
 
     out = {}
@@ -846,10 +908,17 @@ def estimation_split(clouds, smi):
               for p, (x, kw) in _passes(calls["refine_knn"]).items()}
         k4 = _time_ms(lambda: [real["knn_moments"](*x, **kw)
                                for x, kw in calls["knn_moments"]], 5)
+        k4_calls = dict(zip(MOMENT_PASSES, calls["knn_moments"]))
         out[name] = {"knn_ms": total, "k3_ms": k3,
                      "k3_splits": {p: _split_of(call)[0] for p, call in
                                    _passes(calls["refine_knn"]).items()},
-                     "k4_ms": k4, "rest_ms": total - sum(k3.values()) - k4}
+                     "k4_ms": k4,
+                     "k4_passes_ms": {
+                         p: _time_ms(lambda x=x, kw=kw: real["knn_moments"](
+                             *x, **kw), 5) for p, (x, kw) in k4_calls.items()},
+                     "k4_splits": {p: _split_of(call)[0]
+                                   for p, call in k4_calls.items()},
+                     "rest_ms": total - sum(k3.values()) - k4}
     return {"rung": [KCAP, KFT], "clouds": out, "card": smi}
 
 
@@ -1263,39 +1332,45 @@ def brute_phases(a, b, float_cloud):
     a->b, b->a, self a->a with exclude_self, and a float cloud -> b. Index
     and distance must be bit-identical. The plain version runs on all rows
     unless a timed 2048-row slice predicts more than PLAIN_BUDGET_S, then on
-    a stated leading block of rows. The a->b phase also times one PyTorch
-    library call for the same function, ``torch.cdist(a, b).min(dim=1)``
-    (two kernels, not bit-equal; a yardstick the port never calls)."""
+    a stated leading block of rows. Each phase gives the kernel's query rows
+    a thread (R), its split of b's rows and blocks, registers and blocks an
+    SM. The a->b phase also times one PyTorch library call for the same
+    function, ``torch.cdist(a, b).min(dim=1)`` (two kernels, not
+    bit-equal; a yardstick the port never calls)."""
     import torch
 
-    from open_pcc_metric_tpu_torch.ops.nn import nn_argmin, nn_chunked
+    from open_pcc_metric_tpu_torch.ops import nn
 
     records = []
     for name, q, s, ex in (("a->b", a, b, False), ("b->a", b, a, False),
                            ("self a->a", a, a, True),
                            ("float a->b", float_cloud, b, False)):
         qp, sp = q.points, s.points
-        gi, gd = nn_argmin(qp, sp, ex)
+        gi, gd = nn.nn_argmin(qp, sp, ex)
         torch.cuda.synchronize()
-        na = qp.shape[0]
-        _, slice_ms = _once_ms(lambda: nn_chunked(qp[:2048], sp, ex))
+        na, nb = qp.shape[0], sp.shape[0]
+        _, slice_ms = _once_ms(lambda: nn.nn_chunked(qp[:2048], sp, ex))
         predicted_s = slice_ms * na / 2048 / 1e3
         rows, note = na, None
         if predicted_s > PLAIN_BUDGET_S:
             rows = max(2048, int(na * PLAIN_BUDGET_S / predicted_s) // 256 * 256)
             note = (f"plain version compared on the first {rows} of {na} "
                     f"rows: all rows were predicted to take {predicted_s:.0f} s")
-        (wi, wd), plain_ms = _once_ms(lambda: nn_chunked(qp[:rows], sp, ex))
+        (wi, wd), plain_ms = _once_ms(lambda: nn.nn_chunked(qp[:rows], sp, ex))
         if not (_bit_equal(gi[:rows], wi) and _bit_equal(gd[:rows], wd)):
             bad = int(((gi[:rows] != wi) | (gd[:rows] != wd)).sum())
             raise AssertionError(f"K5 phase {name}: {bad} rows differ from "
                                  "nn_chunked")
-        bound_ms, bound_by = _bound(OPS_PER_PAIR * na * sp.shape[0],
-                                    [qp, sp], [gi, gd])
+        bound_ms, bound_by = _bound(OPS_PER_PAIR * na * nb, [qp, sp], [gi, gd])
+        regs, per_sm = nn.occupancy()
+        splits = nn.split_count(na, nb, nn.sm_count(qp.device), per_sm)
         rec = {
-            "phase": name, "rows": int(na), "search_rows": int(sp.shape[0]),
+            "phase": name, "rows": int(na), "search_rows": int(nb),
             "valid_rows": [int(q.n), int(s.n)], "max_abs_err": 0.0,
-            "ms": _time_ms(lambda: nn_argmin(qp, sp, ex), 20),
+            "rows_a_thread": nn.ROWS, "splits": splits,
+            "blocks": -(-na // (nn._THREADS * nn.ROWS)) * splits,
+            "registers": regs, "blocks_per_sm": per_sm,
+            "ms": _time_ms(lambda: nn.nn_argmin(qp, sp, ex), 20),
             "plain_ms": plain_ms if rows == na else None,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
@@ -1748,8 +1823,10 @@ def _replays(names, sweep, module=None):
             for name, calls in _calls(names, sweep, module).items()}
 
 
-# The passes of the counted schedules, in the order they call K1 or K3.
+# The passes of the counted schedules, in the order they call K1 or K3,
+# and the moments passes of the counted k-NN, in the order they call K4.
 PASSES = ("probe", "extension", "tier A", "tier B")
+MOMENT_PASSES = ("stage 1", "tier A", "tier B")
 
 
 def _passes(calls):
@@ -1760,7 +1837,8 @@ def _passes(calls):
 
 
 def _split_of(call):
-    """(split count, blocks) of a K1 or K3 call at the automatic count."""
+    """(split count, blocks) of a K1, K3 or K4 call at the automatic
+    count."""
     from open_pcc_metric_tpu_torch.ops.refine import sm_count, split_count
 
     cand = call[0][3]
@@ -2177,9 +2255,10 @@ def main() -> int:
     k7_recs, _ = adaptive_phases(a, b)
     k6_recs = payload_phases(origin, reconst, dev)
     k3_recs, k4_recs = knn_phases(a, fcloud)
-    tail_k1, tail_k3 = tail_phases(a, b)
+    tail_k1, tail_k3, tail_k4 = tail_phases(a, b)
     records += tail_k1
     k3_recs += tail_k3
+    k4_recs += tail_k4
     ga, gb, gf = a.get_grid(), b.get_grid(), fcloud.get_grid()
     k2a_recs, k2b_recs = select_phases([
         ("800k a->b", ga, gb, a.n, CAP, False),

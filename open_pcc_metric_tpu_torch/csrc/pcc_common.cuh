@@ -17,10 +17,12 @@
 // uses offset as K1 does. So do the fixed-cap schedule's refines K1b
 // (refine_nn_straight.cu), K1c (refine_nn_fused.cu) and K3b
 // (refine_knn_straight.cu), which must equal K1 and K3 ungated; its
-// candidate select K2c (select_candidates.cu) shares lex_less. K1 and K3
-// share the split of a tile's slot range over a thread-block cluster
+// candidate select K2c (select_candidates.cu) shares lex_less. K1, K3 and
+// K4 share the split of a tile's slot range over a thread-block cluster
 // (split_begin, launch_split) and the skip of 32-record words by their box
-// (stage_chunk_boxed, point_box_lb).
+// (stage_chunk_boxed, point_box_lb); K5 splits b's rows the same way
+// (launch_split_threads, at its own block size). K3, K3b, K4 and K5 report
+// their registers and resident blocks through occupancy.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -176,22 +178,23 @@ __host__ __device__ __forceinline__ int split_begin(int live, int s,
   return static_cast<int>(static_cast<int64_t>(s) * live / splits);
 }
 
-// Launch `kernel` on nt * splits blocks of kChunk threads. With splits > 1
-// the blocks of one tile form a thread-block cluster of `splits` blocks
-// (block rank = blockIdx.x % splits), so they can merge through
-// distributed shared memory; with splits == 1 it is a plain launch. Returns
-// the launch's error (0 = ok): a refused cluster launch is reported, never
-// replaced by another launch.
+// Launch `kernel` on nt * splits blocks of `threads` threads (kChunk unless
+// given). With splits > 1 the blocks of one tile form a thread-block
+// cluster of `splits` blocks (block rank = blockIdx.x % splits), so they
+// can merge through distributed shared memory; with splits == 1 it is a
+// plain launch. Returns the launch's error (0 = ok): a refused cluster
+// launch is reported, never replaced by another launch.
 template <typename... Params, typename... Args>
-inline int launch_split(void (*kernel)(Params...), int nt, int splits,
-                        size_t smem, cudaStream_t stream, Args... args) {
+inline int launch_split_threads(void (*kernel)(Params...), int nt,
+                                int splits, int threads, size_t smem,
+                                cudaStream_t stream, Args... args) {
   if (splits == 1) {
-    kernel<<<nt, kChunk, smem, stream>>>(args...);
+    kernel<<<nt, threads, smem, stream>>>(args...);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(nt) * splits);
-  cfg.blockDim = dim3(kChunk);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -204,6 +207,28 @@ inline int launch_split(void (*kernel)(Params...), int nt, int splits,
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename... Params, typename... Args>
+inline int launch_split(void (*kernel)(Params...), int nt, int splits,
+                        size_t smem, cudaStream_t stream, Args... args) {
+  return launch_split_threads(kernel, nt, splits, kChunk, smem, stream,
+                              args...);
+}
+
+// Registers a thread and resident blocks an SM of `kernel` at `threads`
+// threads a block and `smem` bytes of dynamic shared memory; returns the
+// CUDA error (0 = ok).
+template <typename Kernel>
+inline int occupancy(Kernel kernel, int threads, size_t smem, int* regs,
+                     int* blocks) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                      threads, smem);
+  return static_cast<int>(err);
 }
 
 }  // namespace pcc

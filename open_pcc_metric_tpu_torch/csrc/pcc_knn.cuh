@@ -3,7 +3,8 @@
 // 8-chunk staging step, the range bound (two minima of 32 strided groups,
 // and the k-th of those 64) and the gate pass that builds each thread's
 // 256-bit mask of the candidates that can enter, skipping a warp's
-// 32-record word by its box. refine_knn.cu's note gives the design.
+// 32-record word by its box. refine_knn.cu's note gives the design. The
+// moments K4 (knn_moments.cu) takes the staging step.
 #pragma once
 
 #include "pcc_common.cuh"
@@ -144,20 +145,6 @@ __device__ __forceinline__ void gate_chunk(const Rec* chunk,
     }
     masks[wd * kChunk + lane] = m;
   }
-}
-
-// Registers a thread and resident blocks an SM of `kernel` at kChunk
-// threads a block and `smem` bytes of dynamic shared memory; returns the
-// CUDA error (0 = ok).
-template <typename Kernel>
-inline int occupancy(Kernel kernel, size_t smem, int* regs, int* blocks) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *regs = attr.numRegs;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kChunk,
-                                                      smem);
-  return static_cast<int>(err);
 }
 
 }  // namespace knn

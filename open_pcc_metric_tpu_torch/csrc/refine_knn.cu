@@ -285,5 +285,5 @@ extern "C" int pcc_refine_knn(const float* q, const float* b,
 // ctypes entry: registers a thread and resident blocks an SM of K3 at one
 // block a tile (no dynamic shared memory); returns the CUDA error.
 extern "C" int pcc_refine_knn_occupancy(int* regs, int* blocks) {
-  return pcc::knn::occupancy(refine_knn_kernel, 0, regs, blocks);
+  return pcc::occupancy(refine_knn_kernel, kChunk, 0, regs, blocks);
 }

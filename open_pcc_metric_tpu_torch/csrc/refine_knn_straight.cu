@@ -228,5 +228,5 @@ extern "C" int pcc_refine_knn_straight(const float* q, const float* b,
 // ctypes entry: registers a thread and resident blocks an SM of K3b;
 // returns the CUDA error.
 extern "C" int pcc_refine_knn_straight_occupancy(int* regs, int* blocks) {
-  return pcc::knn::occupancy(refine_knn_straight_kernel, 0, regs, blocks);
+  return pcc::occupancy(refine_knn_straight_kernel, kChunk, 0, regs, blocks);
 }

@@ -14,7 +14,8 @@ lexicographic (distance, original index) k-best whatever the visit order,
 so the k-set equals every other exact backend's, ties included. With
 ``with_moments`` a second pass, ``refine.knn_moments`` (K4), sums the
 query-relative offsets of each query's k-NN set over the same candidate
-schedule: the normal estimation needs only those sums, never a (P, k, 3)
+schedule (given the search grid's chunk boxes, so the kernel can skip
+slots): the normal estimation needs only those sums, never a (P, k, 3)
 neighbour gather. A self-exclusive k-NN (``exclude_self``) sums them from
 a gather of its k neighbours instead, as the JAX package does.
 
@@ -246,9 +247,11 @@ def knn_pruned_sorted(
     rid = ik[:, :, k - 1].contiguous()
     ubf_eff = kth_ub(dk, valid_t)
     countsf = pro.counts(ubf_eff)
+    boxes = (gb.bbox_lo, gb.bbox_hi)  # K4 skips slots by chunk box
     mom = knn_moments(ga.points, gb.points, gb.perm,
                       order[:, :cap].contiguous(),
-                      torch.clamp(countsf, max=cap).to(torch.int32), rk, rid)
+                      torch.clamp(countsf, max=cap).to(torch.int32), rk, rid,
+                      boxes=boxes)
     for tiles, tlb, torder, lo, hi in tiers:
         cf = countsf[tiles]
         t32 = tiles.to(torch.int32)
@@ -261,7 +264,8 @@ def knn_pruned_sorted(
                 tlb, ubf_eff[tiles]), max=hi), 0)
             part = knn_moments(ga.points, gb.points, gb.perm,
                                torder[:, :hi].contiguous(),
-                               ncm.to(torch.int32), rk_t, rid_t, tiles=t32)
+                               ncm.to(torch.int32), rk_t, rid_t, tiles=t32,
+                               boxes=boxes)
             part = torch.where(take[:, None, None], part, mom[tiles])
         else:
             # Extend the compacted tiles' sums past the prefix already
@@ -270,7 +274,7 @@ def knn_pruned_sorted(
             part = knn_moments(ga.points, gb.points, gb.perm,
                                torder[:, lo:hi].contiguous(),
                                ncm.to(torch.int32), rk_t, rid_t, tiles=t32,
-                               init=mom[tiles].contiguous())
+                               init=mom[tiles].contiguous(), boxes=boxes)
         mom = mom.index_copy(0, tiles, part)
     return (dk.reshape(p, k), ik.reshape(p, k), overflow,
             mom.reshape(p, MOM_CH))

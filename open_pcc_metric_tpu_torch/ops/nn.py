@@ -21,12 +21,13 @@ query rows >= n.
 """
 from __future__ import annotations
 
+import functools
 import typing
 
 import torch
 
-from . import nn_pruned
-from .refine import INT_MAX, _launch, _offsets
+from . import nn_pruned, refine
+from .refine import INT_MAX, MAX_SPLITS, _launch, _offsets, sm_count
 
 # At or above this many padded rows the bound-pruned search takes over from
 # the brute force (the JAX package's value).
@@ -40,12 +41,10 @@ BACKENDS = ("auto", "pruned", "brute", "pallas", "jnp")
 # Bounds one (query rows x search rows) distance block's element count.
 _BLOCK_ELEMS = 1 << 24
 
-# K5's launch shape (csrc/nn_brute.cu): queries per block, search rows per
-# shared-memory stage, and the blocks an SM holds at once (2048 threads),
-# which sizes the split of b's rows over gridDim.y.
-_THREADS = 256
-_STAGE = 1024
-_BLOCKS_PER_SM = 8
+# K5's launch shape (csrc/nn_brute.cu kThreads, kRows): threads a block,
+# and the query rows a thread holds.
+_THREADS = 128
+ROWS = 4
 
 
 def resolve_backend(backend: str, padded_rows: int) -> str:
@@ -117,15 +116,21 @@ def _cdiv(x: int, y: int) -> int:
     return -(-x // y)
 
 
-def _splits(na: int, nb: int, device: torch.device) -> typing.Tuple[int, int]:
-    """(span, splits): K5 cuts b's rows into ``splits`` ranges of ``span``
-    rows (a multiple of the stage), one per gridDim.y, so that a few
-    hundred query blocks still fill the card about twice over."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = _cdiv(2 * sms * _BLOCKS_PER_SM, _cdiv(na, _THREADS))
-    splits = max(1, min(want, _cdiv(nb, _STAGE)))
-    span = _cdiv(_cdiv(nb, splits), _STAGE) * _STAGE
-    return span, _cdiv(nb, span)
+def split_count(na: int, nb: int, sms: int, blocks_per_sm: int) -> int:
+    """K5's ranges of b's rows a query block: as many as one wave of the
+    card holds (``sms`` x ``blocks_per_sm`` resident blocks over the
+    cdiv(na, 128 * ROWS) query blocks), at most MAX_SPLITS (the portable
+    cluster size) and nb. On an H100 at 61440 query rows: 8."""
+    query_blocks = _cdiv(na, _THREADS * ROWS)
+    return max(1, min(MAX_SPLITS, sms * blocks_per_sm // query_blocks, nb))
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy() -> typing.Tuple[int, int]:
+    """(registers a thread, resident blocks an SM) of K5 on the current CUDA
+    device (``refine.occupancy``), kept once read: every launch sizes its
+    split from it."""
+    return refine.occupancy("nn_brute")
 
 
 def nn_argmin(
@@ -156,13 +161,9 @@ def nn_argmin(
     out_i = torch.empty(na, dtype=torch.int32, device=dev)
     if na == 0:
         return out_i, out_d
-    span, splits = _splits(na, nb, dev)
-    part_d = part_i = None
-    if splits > 1:
-        part_d = torch.empty((splits, na), dtype=torch.float32, device=dev)
-        part_i = torch.empty((splits, na), dtype=torch.int32, device=dev)
-    _launch("nn_brute", dev, [a_points, b_points, part_d, part_i, out_d, out_i],
-            [na, nb, span, splits, int(bool(exclude_self))])
+    splits = split_count(na, nb, sm_count(dev), occupancy()[1])
+    _launch("nn_brute", dev, [a_points, b_points, out_d, out_i],
+            [na, nb, splits, int(bool(exclude_self))])
     nn_argmin.launches += 1
     return out_i, out_d
 

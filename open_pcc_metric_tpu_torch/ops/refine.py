@@ -35,11 +35,13 @@ The fixed-cap schedules' stage 1 (``nn_pruned``, ``knn_pruned``) runs:
     chunk only where it can change a buffer. Kernel
     ``csrc/refine_knn_straight.cu``, the port of ``refine_knn_pallas``.
 
-K1 and K3 split each tile's live slots over a thread-block cluster of
+K1, K3 and K4 split each tile's live slots over a thread-block cluster of
 ``split_count(nt, w, sms)`` blocks (1 at probe shapes, up to
 ``MAX_SPLITS`` in the tiers) and merge the parts on chip; ``split_ranges``
-is the parts' rule. The split changes no result, and neither does the kernels' skip of
-32 staged records whose box a warp's rows are all bounded away from.
+is the parts' rule. The split changes no result (K4's sums only by
+float32 summation order), and neither does the kernels' skip of 32 staged
+records whose box a warp's rows are all bounded away from, nor K3b's and
+K4's skip of slots by chunk box.
 
 On CUDA tensors each wrapper launches its hand-written kernel on the
 current stream (or raises); on CPU tensors it runs its plain PyTorch
@@ -62,7 +64,7 @@ INT_MAX = torch.iinfo(torch.int32).max
 MOM_CH = 10  # [cnt, sx, sy, sz, sxx, syy, szz, sxy, sxz, syz]
 MAX_K = 32  # the largest k one K3 build serves
 PAYLOAD_F = 16  # K6 payload rows: [pts 3, col 3, nrm 3, 0 x 7]
-# K1 and K3 split a tile's slot range over a cluster of up to MAX_SPLITS
+# K1, K3 and K4 split a tile's slot range over a cluster of up to MAX_SPLITS
 # blocks (the portable cluster size, pcc::kMaxSplits), aiming at
 # SPLIT_BLOCKS_PER_SM blocks for each SM of the device in all, and give no
 # split fewer than MIN_SPLIT_SLOTS slots of the call's width.
@@ -119,10 +121,10 @@ def _check_k(k: int):
 
 
 def split_count(nt: int, w: int, sms: int) -> int:
-    """K1's and K3's blocks per tile for a call of ``nt`` tiles and ``w``
-    slots on a device of ``sms`` SMs, from the shapes alone (no readback):
-    enough to reach SPLIT_BLOCKS_PER_SM blocks an SM, at most MAX_SPLITS
-    and at most one per MIN_SPLIT_SLOTS slots. On an H100 (132 SMs): 1 at
+    """K1's, K3's and K4's blocks per tile for a call of ``nt`` tiles and
+    ``w`` slots on a device of ``sms`` SMs, from the shapes alone (no
+    readback): enough to reach SPLIT_BLOCKS_PER_SM blocks an SM, at most
+    MAX_SPLITS and at most one per MIN_SPLIT_SLOTS slots. On an H100 (132 SMs): 1 at
     probe shapes (thousands of tiles), 8 in tier B (a few dozen tiles of
     hundreds of slots)."""
     if nt <= 0 or w <= 0:
@@ -144,6 +146,16 @@ def split_ranges(live: torch.Tensor, splits: int):
     live = live.long()
     return [((s * live) // splits, ((s + 1) * live) // splits)
             for s in range(splits)]
+
+
+def _check_boxes(boxes, b_sorted) -> None:
+    """``boxes``: the search grid's two (Pb / 256, 3) chunk-box corners
+    (``bbox_lo``, ``bbox_hi``) of the points' dtype."""
+    shape = (b_sorted.shape[0] // CHUNK, 3)
+    if boxes is None or len(boxes) != 2 or any(tuple(x.shape) != shape
+                              or x.dtype != b_sorted.dtype for x in boxes):
+        raise ValueError(f"boxes must be two {shape} tensors of the "
+                         "points' dtype")
 
 
 def _check_splits(splits) -> None:
@@ -560,8 +572,8 @@ _ENTRIES = {
     # K7, wrapped by ops/refine_adaptive.adaptive_refine
     "adaptive_refine": ("pcc_adaptive_refine", 9, 5),
     "refine_knn": ("pcc_refine_knn", 10, 5),
-    "knn_moments": ("pcc_knn_moments", 10, 2),
-    "nn_brute": ("pcc_nn_brute", 6, 5),  # K5, wrapped by ops/nn.nn_argmin
+    "knn_moments": ("pcc_knn_moments", 12, 3),
+    "nn_brute": ("pcc_nn_brute", 4, 4),  # K5, wrapped by ops/nn.nn_argmin
     "select_bbox": ("pcc_select_bbox", 6, 4),  # K2a, ops/select.select_bbox
     "count_bbox": ("pcc_count_bbox", 6, 3),  # K2b, ops/select.count_bbox
     "select_candidates": ("pcc_select_candidates", 2, 4),
@@ -763,8 +775,20 @@ def knn_moments(
     ik: torch.Tensor,
     tiles: Opt = None,
     init: Opt = None,
+    *,
+    boxes: typing.Tuple[torch.Tensor, torch.Tensor],
+    splits: typing.Optional[int] = None,
 ) -> torch.Tensor:
     """K4 (see ``knn_moments_reference`` for the contract).
+
+    ``boxes``: the search grid's chunk boxes (``bbox_lo``, ``bbox_hi``) of
+    ``b_sorted``, as for ``refine_knn_straight``; the kernel skips a slot
+    that every row of a tile is bounded beyond its ``rk`` from, which
+    changes no result (the plain version takes no boxes). ``splits`` as in
+    ``refine_nn``, with ``init`` entering one split only: the member counts
+    do not change; at ``splits=1`` the sums equal the kernel's unsplit
+    order bit for bit, and at more splits they differ from it by float32
+    summation order only.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel on
     the current stream, or raise: the kernel takes float32 only, every
@@ -772,6 +796,8 @@ def knn_moments(
     index chunks of ``b_sorted`` / tiles of ``q_sorted``. Each launch adds
     one to ``knn_moments.launches``.
     """
+    _check_splits(splits)
+    _check_boxes(boxes, b_sorted)
     if q_sorted.device.type == "cpu":
         return knn_moments_reference(q_sorted, b_sorted, b_orig, cand, ncand,
                                      rk, ik, tiles, init)
@@ -782,17 +808,20 @@ def knn_moments(
     _check_pair("(rk, ik)", rk, ik, (nt, CHUNK), q_sorted.dtype)
     if init is not None and tuple(init.shape) != (nt, CHUNK, MOM_CH):
         raise ValueError(f"init must be ({nt}, {CHUNK}, {MOM_CH})")
+    c_lo, c_hi = boxes
     _cuda_checks("knn_moments", q_sorted,
-                 [b_sorted, b_orig, cand, tiles, ncand, rk, ik, init])
+                 [b_sorted, b_orig, cand, tiles, ncand, c_lo, c_hi, rk, ik,
+                  init])
     if init is not None and init.dtype != torch.float32:
         raise ValueError(f"the CUDA kernel takes float32, not {init.dtype}")
-    out = torch.empty((nt, CHUNK, MOM_CH), dtype=torch.float32,
-                      device=q_sorted.device)
+    dev = q_sorted.device
+    out = torch.empty((nt, CHUNK, MOM_CH), dtype=torch.float32, device=dev)
     if nt == 0:
         return out
-    _launch("knn_moments", q_sorted.device,
-            [q_sorted, b_sorted, b_orig, cand, tiles, ncand, rk, ik, init,
-             out], [nt, w])
+    _launch("knn_moments", dev,
+            [q_sorted, b_sorted, b_orig, cand, tiles, ncand, c_lo, c_hi, rk,
+             ik, init, out],
+            [nt, w, splits or split_count(nt, w, sm_count(dev))])
     knn_moments.launches += 1
     return out
 
@@ -919,12 +948,7 @@ def refine_knn_straight(
     ``refine_knn_straight.launches``.
     """
     if boxes is not None:
-        shape = (b_sorted.shape[0] // CHUNK, 3)
-        if len(boxes) != 2 or any(tuple(x.shape) != shape
-                                  or x.dtype != b_sorted.dtype
-                                  for x in boxes):
-            raise ValueError(f"boxes must be two {shape} tensors of the "
-                             "points' dtype")
+        _check_boxes(boxes, b_sorted)
     if q_sorted.device.type == "cpu":
         return refine_knn_straight_reference(q_sorted, b_sorted, b_orig,
                                              cand, k, tiles, exclude_self)
@@ -937,8 +961,9 @@ def refine_knn_straight(
 
 def occupancy(name: str) -> typing.Tuple[int, int]:
     """(registers a thread, resident blocks an SM) of the kernel ``name``
-    (``refine_knn`` at one block a tile, or ``refine_knn_straight``) on the
-    current CUDA device, from the CUDA runtime."""
+    (``refine_knn`` at one block a tile, ``refine_knn_straight``,
+    ``knn_moments`` or ``nn_brute``) on the current CUDA device, from the
+    CUDA runtime."""
     from . import _build
 
     fn = getattr(_build.load(name).lib, f"pcc_{name}_occupancy")

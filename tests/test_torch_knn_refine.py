@@ -282,8 +282,10 @@ def test_cpu_dispatch_and_validation():
                                 exclude_self=True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     nc = torch.full((2,), 2, dtype=torch.int32)
+    boxes = (qg.bbox_lo, qg.bbox_hi)
     m = knn_moments(qg.points, qg.points, qg.perm, cand, nc,
-                    got[0][:, :, -1].contiguous(), got[1][:, :, -1].contiguous())
+                    got[0][:, :, -1].contiguous(), got[1][:, :, -1].contiguous(),
+                    boxes=boxes)
     assert torch.equal(m, knn_moments_reference(
         qg.points, qg.points, qg.perm, cand, nc, got[0][:, :, -1].contiguous(),
         got[1][:, :, -1].contiguous()))
@@ -297,7 +299,7 @@ def test_cpu_dispatch_and_validation():
                    init=(got[0][:, :, :4], got[1][:, :, :4]))
     with pytest.raises(ValueError):
         knn_moments(qg.points, qg.points, qg.perm, cand, None, got[0][:, :, -1],
-                    got[1][:, :, -1])
+                    got[1][:, :, -1], boxes=boxes)
     # a self-exclusive k-NN sums its moments from a gather of its k
     # neighbours, as JAX's does: equal counts, sums within its tolerance
     got = knn_pruned_sorted(qg, qg, 500, 8, exclude_self=True,
@@ -367,17 +369,19 @@ def test_cuda_moments_kernel_matches_plain_version(kind, cuda_device):
     tiles = torch.tensor([3, 0, 15, 8], dtype=torch.int32, device=cuda_device)
     tl = tiles.long()
     half = torch.full((4,), 5, dtype=torch.int32, device=cuda_device)
+    boxes = (bg.bbox_lo, bg.bbox_hi)
     calls = [
         (cand, nc, rk, rid, {}),
         (cand[tl, 5:].contiguous(), half, rk[tl].contiguous(),
          rid[tl].contiguous(), dict(tiles=tiles, init=knn_moments(
              qg.points, bg.points, bg.perm, cand[tl, :5].contiguous(), half,
-             rk[tl].contiguous(), rid[tl].contiguous(), tiles=tiles))),
+             rk[tl].contiguous(), rid[tl].contiguous(), tiles=tiles,
+             boxes=boxes))),
     ]
     for c, n, r, i, kw in calls:
         args = (qg.points, bg.points, bg.perm, c, n, r, i)
         before = knn_moments.launches
-        got = knn_moments(*args, **kw)
+        got = knn_moments(*args, boxes=boxes, **kw)
         torch.cuda.synchronize()
         assert knn_moments.launches == before + 1
         want = knn_moments_reference(*args, **kw)
