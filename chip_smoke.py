@@ -40,8 +40,11 @@ Hausdorff):
     tail; ``PCC_PAYLOAD_KERNEL=1`` (K6 on the cross sweeps) on the 800k pair
     in turns; every table and sweep bit-identical to the default's, and a
     float pair under adaptive, which must take the default schedule.
-    Before them, K7 (P1, P2, P3, self probe), K1's expanded mode and K6
-    (stage 1 a->b and b->a) against their plain versions at those shapes.
+    Before them, K7 (P1, P2, P3 seeded beyond cap and from scratch, self
+    probe; each at the automatic split and at one block a row), K1's
+    expanded mode and K6 (stage 1 a->b and b->a) against their plain
+    versions at those shapes, with bounds from what their word skips
+    cannot avoid.
     The ladder memo's key names the schedule, so no turn starts from a rung
     another schedule certified;
   * the fixed-cap schedule: ``PCC_NN_SCHED=fixed`` (stage 1 is K2c's
@@ -152,6 +155,9 @@ ADAPTIVE_CAP, ADAPTIVE_FT3 = max(64, CAP), max(64, FALLBACK // 4)
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add and one compare per distance
 OPS_PER_PAIR_EXPANDED = 8  # K7, K1 expanded: 1 add, 3 FMA and one compare
+# K7 and K1 expanded skip a word only for rows whose best d is below this
+# (csrc/pcc_nn.cuh kSkipGuard), where the expanded form cannot round.
+SKIP_GUARD = 2.0 ** 22
 OPS_PER_MEMBER = 16  # K4: one count and 15 multiply/adds per k-NN member
 OPS_PER_BOUND = 17  # a box bound: 6 sub, 6 max, 3 mul, 2 add
 OPS_SELECT = OPS_PER_BOUND + 2  # K2a: mask and pack the key
@@ -215,12 +221,15 @@ def _bound(ops, tensors_in, tensors_out):
                               if x is not None))
 
 
-def _refine_bytes(q_points, b_points, perm, cand, tiles, ncand, init, outs):
+def _refine_bytes(q_points, b_points, perm, cand, tiles, ncand, init, outs,
+                  row_bytes=None):
     """Bytes a K1 or K3 call must move, each once: the query rows of its
     tiles, the (x, y, z, id) rows of each distinct chunk in its live slots,
     those slots' ``cand`` entries, ``tiles``, ``ncand``, the seed and the
     outputs. A compacted tier reads a few tiles and chunks of whole clouds,
-    which the clouds' sizes would overstate."""
+    which the clouds' sizes would overstate. ``row_bytes``: (query row,
+    candidate row) bytes of another layout (K7's packed rows; K6's payload
+    row with the candidate)."""
     import torch
 
     nt, w = cand.shape
@@ -229,8 +238,9 @@ def _refine_bytes(q_points, b_points, perm, cand, tiles, ncand, init, outs):
             < ncand.long()[:, None])
     chunks = int(torch.unique(cand[live]).numel())
     n_tiles = nt if tiles is None else int(torch.unique(tiles).numel())
-    q_row = 3 * q_points.element_size()
-    b_row = 3 * b_points.element_size() + perm.element_size()
+    q_row, b_row = row_bytes or (3 * q_points.element_size(),
+                                 3 * b_points.element_size()
+                                 + perm.element_size())
     rest = sum(x.numel() * x.element_size()
                for x in (tiles, ncand, *(init or ()), *outs) if x is not None)
     return (256 * (n_tiles * q_row + chunks * b_row)
@@ -248,14 +258,15 @@ def _live_pairs(cand, ncand):
 
 
 def _skip_ops(q_points, b_points, cand, tiles, ncand, thresh, full=None,
-              chunk_boxes=None):
-    """Operations K1, K3, K3b and K4 must do on this data, for their bound.
-    A warp skips a word (32 staged records) when every row's bound to the
-    word's box is above the row's threshold at that point, which never
-    falls below its final one, ``thresh`` (K1: the row's d; K3 and K4: its
-    k-th d, final on K4's entry). So they do, at least, a point-box bound (OPS_PER_BOUND) for each
-    row and live word, and OPS_PER_PAIR for each pair of a (warp, word)
-    where some row is bounded at or below ``thresh``. ``full``: a tile mask
+              chunk_boxes=None, per_pair=OPS_PER_PAIR):
+    """Operations K1, K3, K3b, K4, K6 and K7 must do on this data, for their
+    bound. A warp skips a word (32 staged records) when every row's bound
+    to the word's box is above the row's threshold at that point, which
+    never falls below its final one, ``thresh`` (K1, K6: the row's d; K7:
+    its d below the skip guard, else inf; K3 and K4: its k-th d, final on
+    K4's entry). So they do, at least, a point-box bound (OPS_PER_BOUND)
+    for each row and live word, and ``per_pair`` operations for each pair
+    of a (warp, word) where some row is bounded at or below ``thresh``. ``full``: a tile mask
     whose live pairs K3 also walks once without skipping (its threshold
     pass). ``chunk_boxes`` (K3b's and K4's slot skip): each row bounds each
     slot's
@@ -295,7 +306,7 @@ def _skip_ops(q_points, b_points, cand, tiles, ncand, thresh, full=None,
             clb = (sq[..., 0] + sq[..., 1]) + sq[..., 2]  # (n, w, row)
             needed = (clb <= th[i:i + step, None, :]).any(-1) & on
             bounded_slots -= int((on & ~needed).sum())
-    ops = (OPS_PER_PAIR * near_words * 32 * 32
+    ops = (per_pair * near_words * 32 * 32
            + OPS_PER_BOUND * bounded_slots * 8 * 256)
     if chunk_boxes is not None:
         ops += OPS_PER_BOUND * int(live.sum()) * 256
@@ -403,23 +414,32 @@ def adaptive_phases(a, b):
     """K7 against adaptive_refine_reference on the card, at the shapes the
     adaptive a->b sweep of the 800k pair gives it at the base rung (cap
     ADAPTIVE_CAP, ft3 ADAPTIVE_FT3, p1 P1): the P1 probe, the seeded gated
-    P2, the P3 tail at the tiles and counts the sweep reaches, and a self
-    probe with exclude_self. d and id must be bit-identical on valid rows
-    (the kernel fuses the multiply-adds the plain version rounds one by
-    one, which only sentinel rows can tell apart). The probe's cand also
-    goes through K1 and K1's expanded mode: equal on valid rows, times side
-    by side. Returns (K7 records, the K1-expanded record)."""
+    P2, P3 at the schedule's shape (the tail tiles' lb order beyond cap,
+    seeded with P2's rows), P3 as the first design's schedule called it
+    (from scratch over the full lb order, so the kernel's gain and the
+    schedule's show apart), and a self probe with exclude_self. Each runs
+    at the automatic split and at ``splits=1``; d and id must be
+    bit-identical on valid rows (the kernel fuses the multiply-adds the
+    plain version rounds one by one, which only sentinel rows can tell
+    apart), and the two P3 calls' valid rows equal. Bound: the operations
+    the guarded word skip cannot avoid (``_skip_ops`` against each row's
+    final d where it is below SKIP_GUARD, else no skip) and the bytes of
+    the packed rows the call reads (``_refine_bytes``); the all-pairs bound
+    beside it. The probe's cand also goes through K1 and K1's expanded
+    mode: equal on valid rows, times side by side. Returns (K7 records,
+    the K1-expanded record)."""
     import torch
 
     from open_pcc_metric_tpu_torch.ops.nn_pruned import (
         cert_ub, count_under, stable_top, tile_bounds)
     from open_pcc_metric_tpu_torch.ops.refine import (
-        refine_nn, refine_nn_reference)
+        occupancy, refine_nn, refine_nn_reference, sm_count, split_count)
     from open_pcc_metric_tpu_torch.ops.refine_adaptive import (
         adaptive_refine, adaptive_refine_reference, pack_candidates,
         pack_queries)
 
     dev = a.points.device
+    regs, per_sm = occupancy("adaptive_refine")
 
     def valid_rows(tids):
         return (tids.long()[:, None] * 256
@@ -430,40 +450,60 @@ def adaptive_phases(a, b):
             bad = int(((got[0] != want[0]) | (got[1] != want[1]))[valid].sum())
             raise AssertionError(f"{name}: {bad} valid rows differ")
 
-    def check(name, qhat, bhat, cand, ncand, tids, **kw):
+    def check(name, qg, bg, cand, ncand, tids, **kw):
+        bhat = pack_candidates(bg.points, bg.perm)
         args = (qhat, bhat, cand.contiguous(), ncand.to(torch.int32),
                 tids.to(torch.int32))
         got = adaptive_refine(*args, **kw)
+        one = adaptive_refine(*args, splits=1, **kw)
         torch.cuda.synchronize()
         want, plain_ms = _once_ms(lambda: adaptive_refine_reference(*args,
                                                                     **kw))
-        same(f"K7 phase {name}", got, want, valid_rows(args[4]))
-        init = kw.get("init") or (None, None)
-        bound_ms, bound_by = _bound(
-            OPS_PER_PAIR_EXPANDED * _live_pairs(cand, args[3]),
-            [*args, *init], list(got))
+        valid = valid_rows(args[4])
+        same(f"K7 phase {name}", got, want, valid)
+        same(f"K7 phase {name} at splits=1", one, want, valid)
+        rows, w = args[2].shape
+        nbytes = _refine_bytes(qg.points, bg.points, bg.perm, args[2],
+                               args[4], args[3], kw.get("init"), got,
+                               row_bytes=(16, 20))
+        thresh = torch.where(got[0] < SKIP_GUARD, got[0], torch.inf)
+        bound_ms, bound_by = _bound_of(
+            _skip_ops(qg.points, bg.points, args[2], args[4], args[3],
+                      thresh, per_pair=OPS_PER_PAIR_EXPANDED), nbytes)
+        splits = split_count(rows, w, sm_count(dev))
+        live = torch.clamp(args[3], 0, w)
         rec = {
-            "phase": name, "rows": int(cand.shape[0]),
-            "slots": int(cand.shape[1]),
-            "live_slots": int(torch.clamp(args[3], 0, cand.shape[1]).sum()),
-            "compared": "valid rows", "max_abs_err": 0.0,
+            "phase": name, "rows": int(rows), "slots": int(w),
+            "live_slots": int(live.sum()), "max_live_slots": int(live.max()),
+            "splits": splits, "blocks": int(rows) * splits,
+            "rows_at_or_above_guard": int(
+                (~(got[0] < SKIP_GUARD) & valid & (live > 0)[:, None]).sum()),
+            "compared": "valid rows, at the automatic split and at splits=1",
+            "max_abs_err": 0.0,
             "ms": _time_ms(lambda: adaptive_refine(*args, **kw), 20),
+            "ms_splits_1": _time_ms(
+                lambda: adaptive_refine(*args, splits=1, **kw), 20),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "bound_all_pairs_ms": _bound_of(
+                OPS_PER_PAIR_EXPANDED * _live_pairs(args[2], args[3]),
+                nbytes)[0],
+            "library_ms": None, "registers": regs, "blocks_per_sm": per_sm,
         }
         return got, rec
+
+    def show(rec):
+        print("kernel phase K7 " + json.dumps(rec), flush=True)
+        recs.append(rec)
 
     ga, gb = a.get_grid(), b.get_grid()
     valid_t, lb, order = tile_bounds(ga, gb, a.n)
     nta = order.shape[0]
     cap = min(ADAPTIVE_CAP, gb.n_chunks)
     qhat = pack_queries(ga.points)
-    bhat = pack_candidates(gb.points, gb.perm)
     tids = torch.arange(nta, dtype=torch.int32, device=dev)
     full = torch.full((nta,), P1, dtype=torch.int32, device=dev)
     recs = []
-    (d1, i1), rec = check("P1 probe a->b", qhat, bhat, order[:, :P1], full,
-                          tids)
+    (d1, i1), rec = check("P1 probe a->b", ga, gb, order[:, :P1], full, tids)
     # The same cand through K1 (difference form) and K1's expanded mode.
     args = (ga.points, gb.points, gb.perm, order[:, :P1].contiguous())
     k1 = refine_nn(*args)
@@ -477,42 +517,52 @@ def adaptive_phases(a, b):
     rec["k1_ms"] = _time_ms(lambda: refine_nn(*args), 20)
     rec["k1_expanded_ms"] = _time_ms(lambda: refine_nn(*args, expanded=True),
                                      20)
-    print("kernel phase K7 " + json.dumps(rec), flush=True)
-    recs.append(rec)
-    bound_ms, bound_by = _bound(
-        OPS_PER_PAIR_EXPANDED * _live_pairs(args[3], None), args, list(k1x))
+    show(rec)
+    thresh = torch.where(k1x[0] < SKIP_GUARD, k1x[0], torch.inf)
+    nbytes = _refine_bytes(*args, None, None, None, k1x)
+    bound_ms, bound_by = _bound_of(
+        _skip_ops(ga.points, gb.points, args[3], None, None, thresh,
+                  per_pair=OPS_PER_PAIR_EXPANDED), nbytes)
     k1x_rec = {
         "phase": "K1 expanded probe a->b", "tiles": nta, "slots": P1,
         "compared": "valid rows (also equal to K1 and K7)", "max_abs_err": 0.0,
         "ms": rec["k1_expanded_ms"], "plain_ms": k1x_plain_ms,
         "k1_ms": rec["k1_ms"], "k7_ms": rec["ms"], "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        "bound_by": bound_by, "bound_all_pairs_ms": _bound_of(
+            OPS_PER_PAIR_EXPANDED * _live_pairs(args[3], None), nbytes)[0],
+        "library_ms": None,
     }
     print("kernel phase K1 expanded " + json.dumps(k1x_rec), flush=True)
 
     count1 = count_under(lb, cert_ub(d1, valid_t))
     ncand2 = torch.clamp(torch.clamp(count1, max=cap) - P1, 0, cap - P1)
-    (d2, i2), rec = check("P2 extension a->b (seeded, gated)", qhat, bhat,
+    (d2, i2), rec = check("P2 extension a->b (seeded, gated)", ga, gb,
                           order[:, P1:cap], ncand2, tids, init=(d1, i1))
-    print("kernel phase K7 " + json.dumps(rec), flush=True)
-    recs.append(rec)
+    show(rec)
     count2 = count_under(lb, cert_ub(d2, valid_t))
     is_tail = count2 > cap
     otiles = stable_top(torch.where(is_tail, count2, 0), min(ADAPTIVE_FT3,
                                                               nta))
-    ncand3 = torch.where(is_tail[otiles], count2[otiles], 0)
-    _, rec = check("P3 tail a->b (full lb order)", qhat, bhat, order[otiles],
-                   ncand3, otiles)
+    ncand3 = torch.where(is_tail[otiles], count2[otiles] - cap, 0)
+    seeded, rec = check("P3 tail a->b (seeded beyond cap)", ga, gb,
+                        order[otiles, cap:], ncand3, otiles,
+                        init=(d2[otiles].contiguous(),
+                              i2[otiles].contiguous()))
     rec["tail_tiles"] = int(is_tail.sum())
-    rec["tail_slots"] = sorted((int(x) for x in ncand3[ncand3 > 0]),
-                               reverse=True)
-    print("kernel phase K7 " + json.dumps(rec), flush=True)
-    recs.append(rec)
+    rec["tail_slots_beyond_cap"] = sorted(
+        (int(x) for x in ncand3[ncand3 > 0]), reverse=True)
+    show(rec)
+    ncand3_full = torch.where(is_tail[otiles], count2[otiles], 0)
+    scratch, rec = check("P3 tail a->b (from scratch, full lb order)", ga, gb,
+                         order[otiles], ncand3_full, otiles)
+    take = (ncand3_full > 0)[:, None] & valid_rows(otiles)
+    same("K7 P3 seeded vs from scratch", seeded, scratch, take)
+    rec["equals_seeded_on_tail_rows"] = True
+    show(rec)
     order_s = tile_bounds(ga, ga, a.n)[2]
-    _, rec = check("self probe a->a", qhat, pack_candidates(ga.points, ga.perm),
-                   order_s[:, :P1], full, tids, exclude_self=True)
-    print("kernel phase K7 " + json.dumps(rec), flush=True)
-    recs.append(rec)
+    _, rec = check("self probe a->a", ga, ga, order_s[:, :P1], full, tids,
+                   exclude_self=True)
+    show(rec)
     return recs, k1x_rec
 
 
@@ -522,14 +572,19 @@ def payload_phases(origin, reconst, dev):
     (3328 x 32) and b->a (1920 x 32), with the search cloud's points,
     colours and normals as payload. d, id and payload must be
     bit-identical on every row (K6 uses the difference form), and the
-    payload equal to a gather of the original-order rows at the id."""
+    payload equal to a gather of the original-order rows at the id.
+    Bound: the operations the word skip cannot avoid (``_skip_ops``
+    against each row's final d), the bytes the call reads
+    (``_refine_bytes``) plus one payload row read a query; the all-pairs
+    bound beside it."""
     import torch
 
     from open_pcc_metric_tpu_torch.ops.fused import _pack_payload
     from open_pcc_metric_tpu_torch.ops.nn_pruned import tile_bounds
     from open_pcc_metric_tpu_torch.ops.refine import (
-        refine_nn_payload, refine_nn_payload_reference)
+        occupancy, refine_nn_payload, refine_nn_payload_reference)
 
+    regs, per_sm = occupancy("refine_nn_payload")
     a, b = _pair_clouds(origin, reconst, dev)
     recs = []
     for name, q, s in (("a->b", a, b), ("b->a", b, a)):
@@ -547,15 +602,21 @@ def payload_phases(origin, reconst, dev):
         if not _bit_equal(got[2], pay_o[got[1].reshape(-1).long()]):
             raise AssertionError(f"K6 phase {name}: the payload is not the "
                                  "gather at the id")
-        bound_ms, bound_by = _bound(OPS_PER_PAIR * _live_pairs(cand, None),
-                                    args, list(got))
+        nbytes = (_refine_bytes(gq.points, gs.points, gs.perm, cand, None,
+                                None, None, got)
+                  + got[2].numel() * got[2].element_size())
+        bound_ms, bound_by = _bound_of(
+            _skip_ops(gq.points, gs.points, cand, None, None, got[0]),
+            nbytes)
         rec = {
             "phase": f"stage 1 {name}", "tiles": int(cand.shape[0]),
             "slots": int(cand.shape[1]), "compared": "every row",
             "max_abs_err": 0.0,
             "ms": _time_ms(lambda: refine_nn_payload(*args), 20),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "bound_all_pairs_ms": _bound_of(
+                OPS_PER_PAIR * _live_pairs(cand, None), nbytes)[0],
+            "library_ms": None, "registers": regs, "blocks_per_sm": per_sm,
         }
         print("kernel phase K6 " + json.dumps(rec), flush=True)
         recs.append(rec)
@@ -959,20 +1020,20 @@ def cold_profile(origin, reconst, dev):
 @contextlib.contextmanager
 def _k7_passes(counts):
     """Count K7's launches by pass in ``counts`` ({"P1", "P2", "P3"}) while
-    inside: the adaptive schedule's seeded call is P2, an unseeded call
-    over a tile's full lb order (every chunk of the search cloud) is P3,
-    any other P1."""
+    inside: the adaptive schedule's unseeded call is P1, its seeded call
+    right after P1 is P2 (its cap, at least 64, is above p1 = 8, so every
+    sweep runs one) and a seeded call after P2 is P3."""
     from open_pcc_metric_tpu_torch.ops import nn_pruned
 
     real = nn_pruned.adaptive_refine
+    last = ["P3"]
 
     def spy(qhat, bhat, cand, *args, **kw):
-        if kw.get("init") is not None:
-            counts["P2"] += 1
-        elif cand.shape[1] == bhat.shape[1] // 256:
-            counts["P3"] += 1
+        if kw.get("init") is None:
+            last[0] = "P1"
         else:
-            counts["P1"] += 1
+            last[0] = "P2" if last[0] == "P1" else "P3"
+        counts[last[0]] += 1
         return real(qhat, bhat, cand, *args, **kw)
 
     nn_pruned.adaptive_refine = spy
@@ -1707,7 +1768,7 @@ def schedule_sweeps(a, b, label, refine_impl, oracle=None):
     ladder settled on) against the default schedule's, bit for bit on the
     valid rows, and (given ``oracle`` sweeps) 0 rows off them. Records the
     adaptive schedule's P3 tail of each sweep: the rows it ran and their
-    slot counts. Returns {sweep: record}."""
+    slot counts beyond the refined prefix. Returns {sweep: record}."""
     from open_pcc_metric_tpu_torch.ops import nn_pruned as nn_mod
 
     out = {}
@@ -1733,8 +1794,8 @@ def schedule_sweeps(a, b, label, refine_impl, oracle=None):
         if len(calls) == 3:
             tail = calls[2]
             rec["p3_tiles"] = int((tail > 0).sum())
-            rec["p3_slots"] = sorted((int(x) for x in tail[tail > 0]),
-                                     reverse=True)
+            rec["p3_slots_beyond_cap"] = sorted(
+                (int(x) for x in tail[tail > 0]), reverse=True)
         if oracle is not None:
             oi, od = oracle[name]
             rec["rows_off_oracle"] = int(np.sum(

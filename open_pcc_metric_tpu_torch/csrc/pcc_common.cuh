@@ -21,8 +21,10 @@
 // K4 share the split of a tile's slot range over a thread-block cluster
 // (split_begin, launch_split) and the skip of 32-record words by their box
 // (stage_chunk_boxed, point_box_lb); K5 splits b's rows the same way
-// (launch_split_threads, at its own block size). K3, K3b, K4 and K5 report
-// their registers and resident blocks through occupancy.
+// (launch_split_threads, at its own block size). K3, K3b, K4, K5, K6 and K7
+// report their registers and resident blocks through occupancy. The 1-NN
+// refines K1, K6 and K7 take their step, scan, skip and merge from
+// pcc_nn.cuh, the k-NN refines theirs from pcc_knn.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -124,19 +126,14 @@ __device__ __forceinline__ float bbox_lb(const float* alo, const float* ahi,
   return lb;
 }
 
-// Thread `lane` stages record `lane` of chunk `c`, as stage_chunk does, and
-// lane 0 of each warp w writes to boxes[6 * w, 6 * w + 6) the box (min x,
-// y, z, then max x, y, z) of the 32 records its warp staged: records
-// [32 * w, 32 * w + 32) of the chunk. The caller synchronises before and
-// after.
-__device__ __forceinline__ void stage_chunk_boxed(Rec* chunk, float* boxes,
-                                                  const float* b,
-                                                  const int* b_orig, int c,
-                                                  int lane) {
-  stage_chunk(chunk, b, b_orig, c, lane);
-  const Rec r = chunk[lane];
-  float lo[3] = {r.x, r.y, r.z};
-  float hi[3] = {r.x, r.y, r.z};
+// Lane 0 of each warp w writes to boxes[6 * w, 6 * w + 6) the box (min x,
+// y, z, then max x, y, z) of the 32 points (x, y, z) its threads hold:
+// records [32 * w, 32 * w + 32) of a staged chunk. Every thread of the warp
+// calls it.
+__device__ __forceinline__ void store_word_box(float* boxes, float x, float y,
+                                               float z, int lane) {
+  float lo[3] = {x, y, z};
+  float hi[3] = {x, y, z};
 #pragma unroll
   for (int i = 0; i < 5; ++i) {
     const int off = 16 >> i;
@@ -154,6 +151,18 @@ __device__ __forceinline__ void stage_chunk_boxed(Rec* chunk, float* boxes,
       o[3 + a] = hi[a];
     }
   }
+}
+
+// Thread `lane` stages record `lane` of chunk `c`, as stage_chunk does, and
+// stores its warp's word box (store_word_box). The caller synchronises
+// before and after.
+__device__ __forceinline__ void stage_chunk_boxed(Rec* chunk, float* boxes,
+                                                  const float* b,
+                                                  const int* b_orig, int c,
+                                                  int lane) {
+  stage_chunk(chunk, b, b_orig, c, lane);
+  const Rec r = chunk[lane];
+  store_word_box(boxes, r.x, r.y, r.z, lane);
 }
 
 // A lower bound of offset(r, q).d over every record r in `box` (min x, y,

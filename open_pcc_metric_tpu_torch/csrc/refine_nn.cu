@@ -58,60 +58,22 @@
 //     and a warp skips a word when each of its rows is bounded away from
 //     the box by more than its best d (pcc::point_box_lb never exceeds a
 //     record's d, so no skipped record could win). Words skip in seeded
-//     passes and in a probe's later chunks.
+//     passes and in a probe's later chunks. The expanded mode skips only
+//     for rows whose best d is below pcc::nn::kSkipGuard (2^22), where
+//     its rounding cannot reorder a skipped record (pcc_nn.cuh proves it).
+//   * The step, the scan, the skip and the merge live in pcc_nn.cuh, shared
+//     with K6 (refine_nn_payload.cu) and K7 (adaptive_refine.cu).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_build.py).
 
 #include "pcc_common.cuh"
-
-#include <cooperative_groups.h>
-
-#include <climits>
-
-namespace cg = cooperative_groups;
+#include "pcc_nn.cuh"
 
 namespace {
 
 using pcc::kChunk;
-using pcc::Rec;
-
-constexpr int kStage = 8;  // chunks staged between one pair of barriers
-constexpr int kWords = kChunk / 32;  // 32-record words of a chunk, one a warp
-
-// Folds the lexicographic (d, id) minimum of one staged chunk into (md, mi).
-// kSelf: the chunk holds the query's own column (lane), which counts as inf.
-// A warp skips a word (the 32 records of one box of `boxes`) when every
-// row's bound to the box is above its best d so far, `best`: none of them
-// could win. The expanded form may round below that bound, so it skips
-// nothing.
-template <bool kExpanded, bool kSelf>
-__device__ __forceinline__ void scan_chunk(const Rec* chunk,
-                                           const float* chunk_sq,
-                                           const float* boxes, float qx,
-                                           float qy, float qz,
-                                           const pcc::XQuery& xq, int lane,
-                                           float best, float& md, int& mi) {
-#pragma unroll 1
-  for (int wd = 0; wd < kWords; ++wd) {
-    if (!kExpanded) {
-      const float lb = pcc::point_box_lb(boxes + 6 * wd, qx, qy, qz);
-      if (!__any_sync(0xffffffffu, !(lb > best))) continue;
-    }
-#pragma unroll 8
-    for (int bit = 0; bit < 32; ++bit) {
-      const int j = wd * 32 + bit;
-      const Rec r = chunk[j];
-      float d = kExpanded ? pcc::expanded(xq, r.x, r.y, r.z, chunk_sq[j])
-                          : pcc::offset(r, qx, qy, qz).d;
-      if (kSelf && j == lane) d = pcc::inf();
-      if (pcc::lex_less(d, r.id, md, mi)) {
-        md = d;
-        mi = r.id;
-      }
-    }
-  }
-}
+namespace nn = pcc::nn;
 
 template <bool kExpanded>
 __global__ void __launch_bounds__(kChunk)
@@ -122,9 +84,7 @@ refine_nn_kernel(const float* __restrict__ q, const float* __restrict__ b,
                  const int* __restrict__ init_i, float* __restrict__ out_d,
                  int* __restrict__ out_i, int w, int exclude_self,
                  int splits) {
-  __shared__ Rec chunks[kStage][kChunk];
-  __shared__ float boxes[kStage][kWords * 6];  // each word's box
-  __shared__ float chunk_sq[kExpanded ? kStage : 1][kChunk];  // |b|^2
+  __shared__ nn::Staged<kExpanded> st;
   __shared__ float part_d[kChunk];  // this split's partial rows
   __shared__ int part_i[kChunk];
 
@@ -133,74 +93,25 @@ refine_nn_kernel(const float* __restrict__ q, const float* __restrict__ b,
   const int lane = threadIdx.x;
   const int tile = tiles != nullptr ? tiles[t] : t;
   const int64_t row = static_cast<int64_t>(tile) * kChunk + lane;
-  const float qx = q[row * 3 + 0];
-  const float qy = q[row * 3 + 1];
-  const float qz = q[row * 3 + 2];
-  const pcc::XQuery xq{-2.0f * qx, -2.0f * qy, -2.0f * qz,
-                       pcc::sq_norm(qx, qy, qz)};
+  const nn::Query qq =
+      nn::make_query(q[row * 3 + 0], q[row * 3 + 1], q[row * 3 + 2]);
 
   const int64_t o = static_cast<int64_t>(t) * kChunk + lane;
-  float best_d = init_d != nullptr ? init_d[o] : pcc::inf();
-  int best_i = init_i != nullptr ? init_i[o] : INT_MAX;
+  nn::Best best{init_d != nullptr ? init_d[o] : pcc::inf(),
+                init_i != nullptr ? init_i[o] : INT_MAX, -1};
 
   int live = w;
   if (ncand != nullptr) live = min(max(ncand[t], 0), w);  // uniform per block
-  const int begin = pcc::split_begin(live, split, splits);
-  const int end = pcc::split_begin(live, split + 1, splits);
-  const int* slots = cand + static_cast<int64_t>(t) * w;
-
-  for (int s0 = begin; s0 < end; s0 += kStage) {
-    const int n = min(kStage, end - s0);
-    __syncthreads();  // every thread is done with the previous step
-    for (int s = 0; s < n; ++s) {
-      if (kExpanded) {
-        pcc::stage_chunk(chunks[s], b, b_orig, slots[s0 + s], lane);
-        const Rec& r = chunks[s][lane];
-        chunk_sq[s][lane] = pcc::sq_norm(r.x, r.y, r.z);
-      } else {
-        pcc::stage_chunk_boxed(chunks[s], boxes[s], b, b_orig, slots[s0 + s],
-                               lane);
-      }
-    }
-    __syncthreads();
-    for (int s = 0; s < n; ++s) {
-      float md = pcc::inf();
-      int mi = INT_MAX;
-      const float* sq = chunk_sq[kExpanded ? s : 0];
-      if (exclude_self && slots[s0 + s] == tile) {
-        scan_chunk<kExpanded, true>(chunks[s], sq, boxes[s], qx, qy, qz, xq,
-                                    lane, best_d, md, mi);
-      } else {
-        scan_chunk<kExpanded, false>(chunks[s], sq, boxes[s], qx, qy, qz, xq,
-                                     lane, best_d, md, mi);
-      }
-      if (pcc::lex_less(md, mi, best_d, best_i)) {
-        best_d = md;
-        best_i = mi;
-      }
-    }
-  }
-
-  if (splits > 1) {
-    part_d[lane] = best_d;
-    part_i[lane] = best_i;
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();  // every split's partial is in its shared memory
-    if (split == 0) {
-      for (int r = 1; r < splits; ++r) {
-        const float d = cluster.map_shared_rank(part_d, r)[lane];
-        const int i = cluster.map_shared_rank(part_i, r)[lane];
-        if (pcc::lex_less(d, i, best_d, best_i)) {
-          best_d = d;
-          best_i = i;
-        }
-      }
-    }
-    cluster.sync();  // no block leaves while the leader reads its partial
-    if (split != 0) return;
-  }
-  out_d[o] = best_d;
-  out_i[o] = best_i;
+  const auto stage = [&](int s, int c) {
+    nn::stage_points(st, s, b, b_orig, c, lane);
+  };
+  nn::walk<kExpanded, false>(st, stage, cand + static_cast<int64_t>(t) * w,
+                             pcc::split_begin(live, split, splits),
+                             pcc::split_begin(live, split + 1, splits),
+                             exclude_self ? tile : -1, qq, lane, best);
+  if (!nn::merge_splits(part_d, part_i, split, splits, lane, best)) return;
+  out_d[o] = best.d;
+  out_i[o] = best.i;
 }
 
 }  // namespace

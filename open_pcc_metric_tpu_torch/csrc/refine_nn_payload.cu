@@ -20,20 +20,34 @@
 // Bound: FP32 ALU, as K1: 9 operations a (query, candidate) pair; the
 // payload adds 64 bytes read and 64 written per query, about 0.1 ms at
 // 800k queries against the pairs' ~0.2 ms at the probe's width.
-// Design: K1's: one block of 256 threads per tile, one query per thread,
-// each slot's chunk staged in shared memory and scanned by every thread.
+//
+// Design: K1's (refine_nn.cu), through the pieces of pcc_nn.cuh. The first
+// design was K1's first one (one chunk staged between two barriers, every
+// record scanned) with the winner's column in an int64 register updated at
+// every improving candidate: 5x K1 ungated on the same stage-1 table.
+//   * Steps: up to 8 chunks staged between one pair of barriers; each
+//     thread takes a chunk's (d, id, column) minimum and folds it into its
+//     running best once, so the winner's sorted row, chunk * 256 + column
+//     (an int32), is written once a chunk at most.
+//   * Word skip: a warp skips a staged word of 32 records whose box every
+//     row is bounded away from by more than its best d (pcc::point_box_lb
+//     never exceeds pcc::offset's d, so the skip is exact on any cloud).
+//     K6 is unseeded, so a tile's first chunk skips nothing.
+//   * One block a tile: the payload schedule calls K6 at stage-1 shapes,
+//     thousands of tiles of `cap` slots, which fill the card unsplit.
+//   * Epilogue: the winner's payload row with four 16-byte loads and
+//     stores, zeros for a row that no candidate won.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_build.py).
 
 #include "pcc_common.cuh"
-
-#include <climits>
+#include "pcc_nn.cuh"
 
 namespace {
 
 using pcc::kChunk;
-using pcc::Rec;
+namespace nn = pcc::nn;
 
 constexpr int kPayload = 16;  // floats per payload row (ops/refine.PAYLOAD_F)
 
@@ -45,46 +59,27 @@ refine_nn_payload_kernel(const float* __restrict__ q,
                          const int* __restrict__ cand,
                          float* __restrict__ out_d, int* __restrict__ out_i,
                          float* __restrict__ out_p, int w, int exclude_self) {
-  __shared__ Rec chunk[kChunk];
+  __shared__ nn::Staged<false> st;
 
   const int t = blockIdx.x;
   const int lane = threadIdx.x;
   const int64_t row = static_cast<int64_t>(t) * kChunk + lane;
-  const float qx = q[row * 3 + 0];
-  const float qy = q[row * 3 + 1];
-  const float qz = q[row * 3 + 2];
+  const nn::Query qq =
+      nn::make_query(q[row * 3 + 0], q[row * 3 + 1], q[row * 3 + 2]);
 
-  float best_d = pcc::inf();
-  int best_i = INT_MAX;
-  int64_t best_col = -1;  // sorted row of the winner
-
-  for (int s = 0; s < w; ++s) {
-    const int c = cand[static_cast<int64_t>(t) * w + s];
-    __syncthreads();  // every thread is done with the previous chunk
-    pcc::stage_chunk(chunk, b, b_orig, c, lane);
-    __syncthreads();
-    const int self_j = (exclude_self && c == t) ? lane : -1;
-    int win_j = -1;  // winner within this chunk, if any
-#pragma unroll 8
-    for (int j = 0; j < kChunk; ++j) {
-      const Rec r = chunk[j];
-      float d = pcc::offset(r, qx, qy, qz).d;
-      if (j == self_j) d = pcc::inf();
-      if (pcc::lex_less(d, r.id, best_d, best_i)) {
-        best_d = d;
-        best_i = r.id;
-        win_j = j;
-      }
-    }
-    if (win_j >= 0) best_col = static_cast<int64_t>(c) * kChunk + win_j;
-  }
-  out_d[row] = best_d;
-  out_i[row] = best_i;
+  nn::Best best{pcc::inf(), INT_MAX, -1};
+  const auto stage = [&](int s, int c) {
+    nn::stage_points(st, s, b, b_orig, c, lane);
+  };
+  nn::walk<false, true>(st, stage, cand + static_cast<int64_t>(t) * w, 0, w,
+                        exclude_self ? t : -1, qq, lane, best);
+  out_d[row] = best.d;
+  out_i[row] = best.i;
 
   float4* dst = reinterpret_cast<float4*>(out_p + row * kPayload);
-  if (best_col >= 0) {
-    const float4* src =
-        reinterpret_cast<const float4*>(pay + best_col * kPayload);
+  if (best.col >= 0) {
+    const float4* src = reinterpret_cast<const float4*>(
+        pay + static_cast<int64_t>(best.col) * kPayload);
 #pragma unroll
     for (int k = 0; k < kPayload / 4; ++k) dst[k] = src[k];
   } else {
@@ -109,4 +104,9 @@ extern "C" int pcc_refine_nn_payload(const float* q, const float* b,
                              static_cast<cudaStream_t>(stream)>>>(
       q, b, b_orig, pay, cand, out_d, out_i, out_p, w, exclude_self);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread and resident blocks an SM of the kernel (0 = ok).
+extern "C" int pcc_refine_nn_payload_occupancy(int* regs, int* blocks) {
+  return pcc::occupancy(refine_nn_payload_kernel, kChunk, 0, regs, blocks);
 }

@@ -415,11 +415,19 @@ def nn_pruned_adaptive_sorted(
       P2  each tile extended, seeded and gated, to min(count1, cap) chunks
           of its lb order, count1 being the certificate count of P1's ub;
       P3  the ``ft3`` tiles with the largest count2 > cap (count2 from P2's
-          ub) refined from scratch over their full lb order for count2
-          slots, their rows taken only where they ran.
+          ub) refined over their lb order up to count2 slots.
 
     ``overflow`` is set when more than ``ft3`` tiles need P3; a tile that
     P3 refined is exact by construction.
+
+    The JAX package's P3 walks each tail tile from scratch over
+    ``order[:count2]``. Here P3 walks only ``order[cap:count2]``, seeded
+    with P2's rows, and the rows are the same bit for bit: ub only shrinks
+    from P1 to P2, so count2 > cap implies count1 >= count2 > cap, and P1
+    and P2 together walked all of ``order[:cap]`` for every tail tile; the
+    lexicographic (d, id) minimum is associative and idempotent, and each
+    candidate's d is computed the same way in every pass. A tile that P3
+    does not extend (ncand 0) keeps its seed unchanged.
     """
     if ga.points.dtype != torch.float32:
         raise ValueError("adaptive refinement is float32-only")
@@ -451,12 +459,12 @@ def nn_pruned_adaptive_sorted(
     overflow = is_tail.sum() > ft
     if ft > 0 and cap < ncb:
         otiles = stable_top(torch.where(is_tail, count2, 0), ft)
-        ncand3 = torch.where(is_tail[otiles], count2[otiles], 0)
+        ncand3 = torch.where(is_tail[otiles], count2[otiles] - cap, 0)
         # order rows are each tile's full stable lb order (jnp.argsort's).
-        d3, i3 = refine(order[otiles], ncand3, otiles.to(torch.int32))
-        take = (ncand3 > 0)[:, None]
-        d2 = d2.index_copy(0, otiles, torch.where(take, d3, d2[otiles]))
-        i2 = i2.index_copy(0, otiles, torch.where(take, i3, i2[otiles]))
+        d3, i3 = refine(order[otiles, cap:], ncand3, otiles.to(torch.int32),
+                        init=(d2[otiles], i2[otiles]))
+        d2 = d2.index_copy(0, otiles, d3)
+        i2 = i2.index_copy(0, otiles, i3)
     return d2.reshape(nta * CHUNK), i2.reshape(nta * CHUNK), overflow
 
 

@@ -12,7 +12,8 @@ Each refines 256-query tiles over candidate chunks of a Morton grid:
     the winner's ``PAYLOAD_F``-float payload row: the cross sweeps of the
     payload schedule (``nn_pruned.nn_pruned_sorted_payload``) run it.
     Kernel ``csrc/refine_nn_payload.cu``, the port of
-    ``refine_nn_pallas_payload``.
+    ``refine_nn_pallas_payload``, on K1's step, scan and word skip
+    (``csrc/pcc_nn.cuh``).
   * ``refine_knn`` (K3) keeps the k lexicographically smallest pairs: the
     pruned k-NN of the normal estimation runs it. Kernel
     ``csrc/refine_knn.cu``, the port of ``refine_knn_pallas_t``.
@@ -35,13 +36,14 @@ The fixed-cap schedules' stage 1 (``nn_pruned``, ``knn_pruned``) runs:
     chunk only where it can change a buffer. Kernel
     ``csrc/refine_knn_straight.cu``, the port of ``refine_knn_pallas``.
 
-K1, K3 and K4 split each tile's live slots over a thread-block cluster of
-``split_count(nt, w, sms)`` blocks (1 at probe shapes, up to
-``MAX_SPLITS`` in the tiers) and merge the parts on chip; ``split_ranges``
-is the parts' rule. The split changes no result (K4's sums only by
-float32 summation order), and neither does the kernels' skip of 32 staged
-records whose box a warp's rows are all bounded away from, nor K3b's and
-K4's skip of slots by chunk box.
+K1, K3, K4 and K7 (``refine_adaptive.py``) split each tile's live slots
+over a thread-block cluster of ``split_count(nt, w, sms)`` blocks (1 at
+probe shapes, up to ``MAX_SPLITS`` in the tiers) and merge the parts on
+chip; ``split_ranges`` is the parts' rule. The split changes no result
+(K4's sums only by float32 summation order), and neither does the kernels'
+skip of 32 staged records whose box a warp's rows are all bounded away
+from (K1, K3, K4, K6, K7; in the expanded form only below a guard on the
+row's best d), nor K3b's and K4's skip of slots by chunk box.
 
 On CUDA tensors each wrapper launches its hand-written kernel on the
 current stream (or raises); on CPU tensors it runs its plain PyTorch
@@ -570,7 +572,7 @@ _ENTRIES = {
     "refine_nn": ("pcc_refine_nn", 10, 5),
     "refine_nn_payload": ("pcc_refine_nn_payload", 8, 3),
     # K7, wrapped by ops/refine_adaptive.adaptive_refine
-    "adaptive_refine": ("pcc_adaptive_refine", 9, 5),
+    "adaptive_refine": ("pcc_adaptive_refine", 9, 6),
     "refine_knn": ("pcc_refine_knn", 10, 5),
     "knn_moments": ("pcc_knn_moments", 12, 3),
     "nn_brute": ("pcc_nn_brute", 4, 4),  # K5, wrapped by ops/nn.nn_argmin
@@ -962,8 +964,9 @@ def refine_knn_straight(
 def occupancy(name: str) -> typing.Tuple[int, int]:
     """(registers a thread, resident blocks an SM) of the kernel ``name``
     (``refine_knn`` at one block a tile, ``refine_knn_straight``,
-    ``knn_moments`` or ``nn_brute``) on the current CUDA device, from the
-    CUDA runtime."""
+    ``knn_moments``, ``nn_brute``, ``refine_nn_payload`` or
+    ``adaptive_refine``) on the current CUDA device, from the CUDA
+    runtime."""
     from . import _build
 
     fn = getattr(_build.load(name).lib, f"pcc_{name}_occupancy")

@@ -2,9 +2,10 @@
 
 Port of ``open_pcc_metric_tpu/ops/refine_adaptive.py``. The adaptive
 schedule (``nn_pruned.nn_pruned_adaptive_sorted``) runs it three times per
-sweep: a probe, a seeded gated extension and a from-scratch tail over full
-lb orders. Queries and candidates come packed in the JAX package's
-coordinate-major (8, P) layout, so tests hand both packages the same arrays:
+sweep: a probe, a seeded gated extension and a seeded tail over the rest
+of the tail tiles' lb orders. Queries and candidates come packed in the
+JAX package's coordinate-major (8, P) layout, so tests hand both packages
+the same arrays:
 
     qhat = [-2x, -2y, -2z, |q|^2, 1, 0, 0, 0]              (8, Pa)
     bhat = [x, y, z, 1, |b|^2, bitcast(original id), 0, 0]  (8, Pb)
@@ -20,7 +21,14 @@ On CUDA tensors ``adaptive_refine`` launches the hand-written kernel
 ``csrc/adaptive_refine.cu`` on the current stream (or raises); on CPU
 tensors it runs ``adaptive_refine_reference``. The TPU kernel's 8-row
 groups and 512-row calls are layout and are dropped: any number of rows
-takes one launch.
+takes one launch. The kernel is K1's design (``csrc/pcc_nn.cuh``): each
+row's live slots split over a thread-block cluster of
+``refine.split_count`` blocks (8 for P3's few dozen tail tiles, 1 for the
+probe's thousands) merged on chip by the lexicographic minimum, 8 chunks
+staged a step, and a warp's 32-record word skipped when every row is
+bounded away from its box by more than its best d and that best is below
+2^22, where the expanded form's rounding cannot reorder the skipped
+records. Neither changes a valid row.
 """
 from __future__ import annotations
 
@@ -29,8 +37,8 @@ import typing
 import torch
 
 from .grid import CHUNK
-from .refine import Init, _check_pair, _cuda_checks, _expanded, _launch, \
-    _lexmin, sq_norm
+from .refine import Init, _check_pair, _check_splits, _cuda_checks, \
+    _expanded, _launch, _lexmin, sm_count, split_count, sq_norm
 
 
 def pack_queries(points: torch.Tensor) -> torch.Tensor:
@@ -109,6 +117,7 @@ def adaptive_refine(
     tids: torch.Tensor,
     init: Init = None,
     exclude_self: bool = False,
+    splits: typing.Optional[int] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """K7 (see ``adaptive_refine_reference`` for the contract).
 
@@ -117,8 +126,13 @@ def adaptive_refine(
     device, ``cand`` values chunks of ``bhat`` and ``tids`` tiles of
     ``qhat``. The kernel fuses the multiply-adds, so it equals the plain
     version on the valid rows of clouds that pass ``Cloud.mxu_exact``. Each
-    launch adds one to ``adaptive_refine.launches``.
+    row's live slots are split over ``splits`` blocks of one cluster
+    (``split_count(rows, slots, sm_count(device))`` when None; 1 forces one
+    block a row), which changes no result: an argument for the tests and
+    chip_smoke.py, not a knob. Each launch adds one to
+    ``adaptive_refine.launches``.
     """
+    _check_splits(splits)
     if qhat.device.type == "cpu":
         return adaptive_refine_reference(qhat, bhat, cand, ncand, tids, init,
                                          exclude_self)
@@ -135,7 +149,8 @@ def adaptive_refine(
     _launch("adaptive_refine", dev,
             [qhat, bhat, cand, ncand, tids, init_d, init_i, out_d, out_i],
             [rows, slots, qhat.shape[1], bhat.shape[1],
-             int(bool(exclude_self))])
+             int(bool(exclude_self)),
+             splits or split_count(rows, slots, sm_count(dev))])
     adaptive_refine.launches += 1
     return out_d, out_i
 

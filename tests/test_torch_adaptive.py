@@ -218,8 +218,9 @@ def test_small_budget_overflow_matches_jax():
 
 def test_tail_pass_matches_jax_and_oracle(monkeypatch):
     """A dense duplicate-heavy ball with cap=2, p1=1, ft3=nta: many tiles
-    need P3, which refines them from scratch over their full lb order and
-    makes the result exact (test_adaptive.py's tail case)."""
+    need P3, which refines them over the rest of their lb order (seeded
+    with P2's rows beyond the refined prefix) and makes the result exact
+    (test_adaptive.py's tail case)."""
     rng = np.random.default_rng(11)
     a, ga = _grid(rng.integers(0, 24, (3000, 3)).astype(float))
     b, gb = _grid(rng.integers(0, 24, (2600, 3)).astype(float))
@@ -229,8 +230,9 @@ def test_tail_pass_matches_jax_and_oracle(monkeypatch):
     got = nn_pruned_adaptive_sorted(ga, gb, a.n, **kw)
     assert len(calls) == 3
     tail_cand, tail_ncand, tail_tids = calls[2][0][2:5]
-    assert tail_cand.shape == (nta, gb.n_chunks)
-    assert int((tail_ncand > 2).sum()) > 0  # P3 ran on tiles over cap
+    assert tail_cand.shape == (nta, gb.n_chunks - 2)  # beyond cap = 2
+    assert calls[2][1]["init"] is not None
+    assert int((tail_ncand > 0).sum()) > 0  # P3 ran on tiles over cap
     want = _jax_adaptive_sorted(ga, gb, a.n, **kw)
     oi, od, _ = _brute(ga, gb, a.n, b.n, False)
     _assert_same(got, want, a.n, (oi, od))
