@@ -31,7 +31,9 @@ Hausdorff):
     the 2M pair (``bench.make_clouds(2_000_000)``) with normals; every
     sweep and k-NN set bit-identical to the default prologue's, with a
     stage split (prologue, K1, rest) of each 2M sweep. Before them, K2a and
-    K2b against their plain versions at the prologue's shapes, and the
+    K2b against their plain versions at the prologue's shapes, K2a also
+    above its shared-key limit (64 random tiles against 60000 random chunk
+    boxes, cap 32 and 1024, where it takes its first design), and the
     prologue A/B: ``tile_bounds`` (lb, stable sort, two counts) against
     K2a plus two K2b counts, per sweep at 800k and 2M;
   * the refine schedules: ``PCC_REFINE_IMPL=adaptive`` (K7, on these
@@ -54,11 +56,11 @@ Hausdorff):
     ``PCC_NN_SCHED=fixed PCC_KNN_SCHED=fixed`` on the estimation path (K3b),
     k-NN sets equal to the default's, with one profiled cold call. Before
     them, K2c (800k and 2M, cap 32, 64 and 512) against its plain version,
-    its first design (``rounds=True``) and a stable sort, K1b and K1c
-    against their plain version and K1 ungated, and K3b (800k a->a, float
-    and reconst b->b; with and without its slot skip) against its plain
-    version and K3 ungated, on the fixed stage-1 tables. K1c has no caller
-    in either package, so no path launches it.
+    its first design (``rounds=True``) and a stable sort, K1b (also at one
+    block a tile) and K1c against their plain version and K1 ungated, and
+    K3b (800k a->a, float and reconst b->b; with and without its slot
+    skip) against its plain version and K3 ungated, on the fixed stage-1
+    tables. K1c has no caller in either package, so no path launches it.
 
 It prints:
 
@@ -83,6 +85,11 @@ It prints:
     and ``float pair under adaptive`` lines, and a ``schedule split`` line
     per pair size (each sweep's time under each schedule with its kernels
     replayed alone),
+  * K2a phases with ``graph_ms`` (its launches captured in one CUDA graph,
+    so the wrapper's host time between them does not count), the design
+    the call takes, registers, blocks an SM and shared bytes; K1b phases
+    with ``ms_splits_1``, ``bound_all_pairs_ms``, registers and blocks an
+    SM,
   * K2c phases with the first design's time (``rounds_ms``) and whether
     the kernel is at or below the stable sort; K3b phases with the time
     without the slot skip and both k-NN kernels' registers and blocks an
@@ -185,6 +192,33 @@ def _time_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches captured in one
+    CUDA graph (after a warm-up call on a side stream), so the host's
+    launch overhead between them does not count: the kernel's own time
+    where it is shorter than the wrapper's Python."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -1229,7 +1263,9 @@ def _want_psnrs(origin, reconst, sweeps, nrm0, nrm1):
     m = np.array([[0.2126, 0.7152, 0.0722],
                   [-0.1146, -0.3854, 0.5],
                   [0.5, -0.4542, -0.0458]])
-    peak = minimal_obb_extent(pts0).max()
+    # The oracle's peak stays in numpy (device=False): the float64
+    # reference is independent of the port's sweep on the card.
+    peak = minimal_obb_extent(pts0, device=False).max()
     hpeak2 = np.sqrt(ds).max() ** 2
     p0 = ((pts0 - pts1[i0]) * nrm1[i0]).sum(1) ** 2
     p1 = ((pts1 - pts0[i1]) * nrm0[i1]).sum(1) ** 2
@@ -1572,9 +1608,11 @@ def select_phases(cases):
             "phase": name, "tiles": nta, "chunks": ncb, "cap": cap,
             "max_abs_err": 0.0,
             "ms": _time_ms(lambda: select_bbox(*boxes, cap), 20),
+            "graph_ms": _graph_ms(lambda: select_bbox(*boxes, cap), 20),
             "plain_ms": _time_ms(lambda: select_bbox_reference(*boxes, cap),
                                  3),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            **_k2a_occupancy(ncb, cap),
         }
         print("kernel phase K2a " + json.dumps(rec), flush=True)
         k2a.append(rec)
@@ -1600,6 +1638,59 @@ def select_phases(cases):
         print("kernel phase K2b " + json.dumps(rec), flush=True)
         k2b.append(rec)
     return k2a, k2b
+
+
+def _k2a_occupancy(ncb, cap):
+    """K2a's registers, blocks an SM and dynamic shared bytes at (ncb, cap),
+    and which design the call takes."""
+    from open_pcc_metric_tpu_torch.ops.select import occupancy
+
+    regs, per_sm, smem = occupancy(ncb, cap)
+    return {"design": "shared keys" if smem else "recompute",
+            "registers": regs, "blocks_per_sm": per_sm, "shared_bytes": smem}
+
+
+def k2a_wide_phases(dev, n_tiles=64, n_chunks=60_000, seed=7):
+    """K2a above its shared-key limit (``select.SHARED_MAX_CHUNKS``), where
+    it takes the first design: ``n_tiles`` random query-tile boxes against
+    ``n_chunks`` random chunk boxes made from ``seed`` (coordinates in
+    [0, 4000), sides up to 40), cap 32 and 1024, bit-identical to
+    ``select_bbox_reference``."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.select import (
+        SHARED_MAX_CHUNKS, select_bbox, select_bbox_reference)
+
+    if n_chunks <= SHARED_MAX_CHUNKS:
+        raise AssertionError("the wide K2a case is not above the limit")
+    rng = np.random.default_rng(seed)
+    lo_a = rng.uniform(0, 4000, (n_tiles, 3))
+    lo_b = rng.uniform(0, 4000, (n_chunks, 3))
+    boxes = [torch.tensor(x, dtype=torch.float32, device=dev) for x in (
+        lo_a, lo_a + rng.uniform(0, 40, lo_a.shape), lo_b,
+        lo_b + rng.uniform(0, 40, lo_b.shape))]
+    recs = []
+    for cap in (32, 1024):
+        cand, lb_sel = select_bbox(*boxes, cap)
+        torch.cuda.synchronize()
+        want, plain_ms = _once_ms(lambda: select_bbox_reference(*boxes, cap))
+        if not (_bit_equal(cand, want[0]) and _bit_equal(lb_sel, want[1])):
+            raise AssertionError(f"K2a wide phase cap {cap}: differs from "
+                                 "select_bbox_reference")
+        bound_ms, bound_by = _bound(OPS_SELECT * n_tiles * n_chunks, boxes,
+                                    [cand, lb_sel])
+        rec = {
+            "phase": f"random {n_tiles} x {n_chunks}, cap {cap}",
+            "tiles": n_tiles, "chunks": n_chunks, "cap": cap,
+            "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: select_bbox(*boxes, cap), 10),
+            "graph_ms": _graph_ms(lambda: select_bbox(*boxes, cap), 10),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, **_k2a_occupancy(n_chunks, cap),
+        }
+        print("kernel phase K2a " + json.dumps(rec), flush=True)
+        recs.append(rec)
+    return recs
 
 
 def prologue_ab(label, sweeps, smi):
@@ -2092,20 +2183,27 @@ def straight_phases(cases):
     """K1b and K1c against their plain version and K1 ungated on the card,
     on the fixed schedule's stage-1 table of each case (name, query grid,
     search grid, valid queries, exclude_self; cap CAP): d and id
-    bit-identical on every row, the three times printed. Returns (K1b
-    records, K1c records)."""
+    bit-identical on every row, K1b also at one block a tile, the times
+    printed. K1b's bound counts what its word skip cannot avoid
+    (``_skip_ops`` against each row's final d) and the bytes the call reads
+    (``_refine_bytes``), with the all-pairs bound beside it and its
+    registers and blocks an SM; K1c, which skips no word, keeps the
+    all-pairs bound. Returns (K1b records, K1c records)."""
     import torch
 
     from open_pcc_metric_tpu_torch.ops.refine import (
-        refine_nn, refine_nn_fused, refine_nn_straight,
-        refine_nn_straight_reference)
+        occupancy, refine_nn, refine_nn_fused, refine_nn_straight,
+        refine_nn_straight_reference, sm_count, split_count)
 
+    regs, per_sm = occupancy("refine_nn_straight")
     k1b, k1c = [], []
     for name, gq, gs, nq, ex in cases:
         cand = fixed_table(gq, gs, nq, CAP)[2]
         args = (gq.points, gs.points, gs.perm, cand)
         outs = {fn.__name__: fn(*args, exclude_self=ex) for fn in (
             refine_nn_straight, refine_nn_fused, refine_nn)}
+        outs["refine_nn_straight splits=1"] = refine_nn_straight(
+            *args, exclude_self=ex, splits=1)
         torch.cuda.synchronize()
         want, plain_ms = _once_ms(
             lambda: refine_nn_straight_reference(*args, exclude_self=ex))
@@ -2113,22 +2211,33 @@ def straight_phases(cases):
             if not all(_bit_equal(x, y) for x, y in zip(got, want)):
                 raise AssertionError(f"straight phase {name}: {fn_name} "
                                      "differs from the plain version")
-        bound_ms, bound_by = _bound(OPS_PER_PAIR * _live_pairs(cand, None),
-                                    args, list(want))
+        nbytes = _refine_bytes(*args, None, None, None, want)
+        all_pairs = _bound_of(OPS_PER_PAIR * _live_pairs(cand, None), nbytes)
+        skip_bound = _bound_of(
+            _skip_ops(gq.points, gs.points, cand, None, None, want[0]),
+            nbytes)
         ms = {fn.__name__: _time_ms(lambda fn=fn: fn(*args, exclude_self=ex),
                                     20)
               for fn in (refine_nn_straight, refine_nn_fused, refine_nn)}
+        nt, w = cand.shape
         for label, fn_name, recs in (("K1b", "refine_nn_straight", k1b),
                                      ("K1c", "refine_nn_fused", k1c)):
+            bound_ms, bound_by = skip_bound if label == "K1b" else all_pairs
             rec = {
-                "phase": name, "tiles": int(cand.shape[0]),
-                "slots": int(cand.shape[1]),
+                "phase": name, "tiles": nt, "slots": w,
                 "compared": "every row, with the plain version and K1 ungated",
                 "max_abs_err": 0.0, "ms": ms[fn_name], "plain_ms": plain_ms,
                 "k1b_ms": ms["refine_nn_straight"],
                 "k1c_ms": ms["refine_nn_fused"], "k1_ms": ms["refine_nn"],
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             }
+            if label == "K1b":
+                rec.update({
+                    "splits": split_count(nt, w, sm_count(cand.device)),
+                    "ms_splits_1": _time_ms(lambda: refine_nn_straight(
+                        *args, exclude_self=ex, splits=1), 20),
+                    "bound_all_pairs_ms": all_pairs[0],
+                    "registers": regs, "blocks_per_sm": per_sm})
             print(f"kernel phase {label} " + json.dumps(rec), flush=True)
             recs.append(rec)
     return k1b, k1c
@@ -2327,6 +2436,7 @@ def main() -> int:
         ("800k a->b escalated cap", ga, gb, a.n, 512, False),
         ("800k float a->b", gf, gb, fcloud.n, CAP, False),
     ])
+    k2a_recs += k2a_wide_phases(dev)
     prologue_ab("800k", [("a->b", ga, gb, a.n, False),
                          ("b->a", gb, ga, b.n, False),
                          ("self a->a", ga, ga, a.n, True)], smi)

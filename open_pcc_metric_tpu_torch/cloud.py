@@ -131,9 +131,10 @@ class Cloud:
         points: np.ndarray,
         colors: typing.Optional[np.ndarray] = None,
         normals: typing.Optional[np.ndarray] = None,
-        device: typing.Union[str, torch.device, None] = None,
         dtype: torch.dtype = torch.float32,
         pad_to: typing.Optional[int] = None,
+        *,
+        device: typing.Union[str, torch.device, None] = None,
         pad_policy: str = "auto",
     ) -> "Cloud":
         """Build a padded Cloud on ``device`` (the CUDA device when None;
@@ -141,9 +142,16 @@ class Cloud:
         or else to ``pad_bucket(n, pad_policy)`` (by default the
         ``PCC_PAD_POLICY`` policy, read at this call).
 
+        The positional arguments are the JAX package's (points, colors,
+        normals, dtype, pad_to); ``device`` and ``pad_policy`` are
+        keyword-only.
+
         Padding and the float64 -> ``dtype`` cast happen on the host, so the
         device receives exactly the bits the JAX package uploads.
         """
+        if not isinstance(dtype, torch.dtype):
+            raise TypeError(f"dtype must be a torch.dtype, not {dtype!r} "
+                            "(device is keyword-only)")
         device = resolve_device(device)
         np_dtype = numpy_dtype(dtype)
         points = np.asarray(points, dtype=np.float64).reshape(-1, 3)

@@ -1,5 +1,4 @@
-// K1b: ungated, unseeded 1-NN refine over Morton candidate chunks, g chunks
-// a step (Hopper).
+// K1b: ungated, unseeded 1-NN refine over Morton candidate chunks (Hopper).
 //
 // Replaces the TPU kernel open_pcc_metric_tpu/ops/refine_pallas.py:77
 // (_nn_kernel), its group refine_pallas.py:128 (_nn_group) and its entry
@@ -14,39 +13,43 @@
 //   * Ties: the lowest original id wins.
 //   * exclude_self: the column whose global sorted row equals the query's
 //     (tiles[t] * 256 + lane) counts as d = inf, as in the TPU kernel.
+//   * The TPU kernel's g chunks a grid step (_nn_group) and its skip gate
+//     (refine_pallas.py:100-120, which leaves a step's column update out
+//     when no query improves) are TPU layout: they change no result and
+//     have no counterpart here.
 //
-// The TPU kernel's grid steps over g chunks at a time (8, or the largest
-// power of two that divides w), and per chunk it takes each query's chunk
-// minimum and the lowest id at it, then merges that pair into the running
-// best; its skip gate (refine_pallas.py:100-120) leaves a step's (256, 1)
-// column update out when no query improves or ties. That gate is a TPU
-// device, where a single-lane column update costs as much as the chunk's
-// scan; here the update is one compare-select in a thread's registers, so
-// the gate is dropped. It does not change any result.
+// Bound: FP32 ALU, as K1: 9 operations a visited (query, candidate) pair
+// against a 16-byte shared-memory broadcast; global traffic is 4 KB per
+// chunk per tile.
 //
-// Bound: FP32 ALU, as K1: 8 flops and one lexicographic compare per
-// (query, candidate) pair against a 16-byte shared-memory broadcast; global
-// traffic is 4 KB per chunk per tile.
-// Design: one block of 256 threads per tile, one query row per thread held
-// in registers. A step stages its g chunks' (x, y, z, id) records in shared
-// memory together (32 KB at g = 8), so a step costs one pair of barriers
-// where K1 pays one per chunk. Per chunk a thread scans the 256 records for
-// its chunk minimum (d, lowest id), then merges it lexicographically into
-// its running best, as the TPU kernel does.
+// Design: K1's (refine_nn.cu) without its gate and seed, through the
+// pieces of pcc_nn.cuh. The first design (one block a tile, up to 8 chunks
+// staged a step, every staged record scanned with a lexicographic compare
+// a pair) took 3.5x K1 ungated on the same stage-1 table.
+//   * Steps: up to 8 chunks staged between one pair of barriers; each
+//     thread takes a chunk's (d, id) minimum and folds it into its running
+//     best once.
+//   * Word skip: a warp skips a staged word of 32 records whose box every
+//     row is bounded away from by more than its best d (pcc::point_box_lb
+//     never exceeds pcc::offset's d, so the skip is exact on any cloud).
+//     K1b is unseeded, so a tile's first chunk skips nothing.
+//   * Split: ops/refine.split_count gives a call of few tiles S blocks a
+//     tile, one cluster, merged on chip by pcc::nn::merge_splits; at
+//     stage-1 shapes (thousands of tiles) S = 1, one block a tile.
+//   * K2c repeats column 0 on the rows of query tiles with no valid point,
+//     so such a row visits one chunk several times: harmless, the
+//     lexicographic minimum is idempotent.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (see ops/_build.py).
 
 #include "pcc_common.cuh"
-
-#include <climits>
+#include "pcc_nn.cuh"
 
 namespace {
 
 using pcc::kChunk;
-using pcc::Rec;
-
-constexpr int kMaxG = 8;  // chunks staged a step
+namespace nn = pcc::nn;
 
 __global__ void __launch_bounds__(kChunk)
 refine_nn_straight_kernel(const float* __restrict__ q,
@@ -55,68 +58,57 @@ refine_nn_straight_kernel(const float* __restrict__ q,
                           const int* __restrict__ cand,
                           const int* __restrict__ tiles,
                           float* __restrict__ out_d, int* __restrict__ out_i,
-                          int w, int g, int exclude_self) {
-  __shared__ Rec chunks[kMaxG][kChunk];
+                          int w, int exclude_self, int splits) {
+  __shared__ nn::Staged<false> st;
+  __shared__ float part_d[kChunk];  // this split's partial rows
+  __shared__ int part_i[kChunk];
 
-  const int t = blockIdx.x;
+  const int t = blockIdx.x / splits;
+  const int split = blockIdx.x - t * splits;  // the block's cluster rank
   const int lane = threadIdx.x;
   const int tile = tiles != nullptr ? tiles[t] : t;
   const int64_t row = static_cast<int64_t>(tile) * kChunk + lane;
-  const float qx = q[row * 3 + 0];
-  const float qy = q[row * 3 + 1];
-  const float qz = q[row * 3 + 2];
-  const int* slots = cand + static_cast<int64_t>(t) * w;
+  const nn::Query qq =
+      nn::make_query(q[row * 3 + 0], q[row * 3 + 1], q[row * 3 + 2]);
 
-  float best_d = pcc::inf();
-  int best_i = INT_MAX;
-  for (int s0 = 0; s0 < w; s0 += g) {
-    __syncthreads();  // every thread is done with the previous step's chunks
-    for (int s = 0; s < g; ++s) {
-      pcc::stage_chunk(chunks[s], b, b_orig, slots[s0 + s], lane);
-    }
-    __syncthreads();
-    for (int s = 0; s < g; ++s) {
-      const int self_j = (exclude_self && slots[s0 + s] == tile) ? lane : -1;
-      float chunk_d = pcc::inf();
-      int chunk_i = INT_MAX;
-#pragma unroll 8
-      for (int j = 0; j < kChunk; ++j) {
-        const Rec r = chunks[s][j];
-        float d = pcc::offset(r, qx, qy, qz).d;
-        if (j == self_j) d = pcc::inf();
-        if (pcc::lex_less(d, r.id, chunk_d, chunk_i)) {
-          chunk_d = d;
-          chunk_i = r.id;
-        }
-      }
-      if (pcc::lex_less(chunk_d, chunk_i, best_d, best_i)) {
-        best_d = chunk_d;
-        best_i = chunk_i;
-      }
-    }
-  }
+  nn::Best best{pcc::inf(), INT_MAX, -1};
+  const auto stage = [&](int s, int c) {
+    nn::stage_points(st, s, b, b_orig, c, lane);
+  };
+  nn::walk<false, false>(st, stage, cand + static_cast<int64_t>(t) * w,
+                         pcc::split_begin(w, split, splits),
+                         pcc::split_begin(w, split + 1, splits),
+                         exclude_self ? tile : -1, qq, lane, best);
+  if (!nn::merge_splits(part_d, part_i, split, splits, lane, best)) return;
   const int64_t o = static_cast<int64_t>(t) * kChunk + lane;
-  out_d[o] = best_d;
-  out_i[o] = best_i;
+  out_d[o] = best.d;
+  out_i[o] = best.i;
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. q (Pa, 3), b (Pb, 3), cand (nt, w) with w a
-// multiple of g, 1 <= g <= 8; tiles is a null pointer or (nt,). Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError() (0 = ok),
-// or cudaErrorInvalidValue for a bad g.
+// Plain C entry for ctypes. q (Pa, 3), b (Pb, 3), cand (nt, w); tiles is a
+// null pointer or (nt,). `splits` (1..8) blocks walk each tile's slots, as
+// a cluster when above 1. Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError() (0 = ok), or cudaErrorInvalidValue for a bad
+// split count.
 extern "C" int pcc_refine_nn_straight(const float* q, const float* b,
                                       const int* b_orig, const int* cand,
                                       const int* tiles, float* out_d,
-                                      int* out_i, int nt, int w, int g,
-                                      int exclude_self, void* stream) {
-  if (g < 1 || g > kMaxG || w % g) {
+                                      int* out_i, int nt, int w,
+                                      int exclude_self, int splits,
+                                      void* stream) {
+  if (splits < 1 || splits > pcc::kMaxSplits) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nt <= 0) return 0;
-  refine_nn_straight_kernel<<<nt, kChunk, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      q, b, b_orig, cand, tiles, out_d, out_i, w, g, exclude_self);
-  return static_cast<int>(cudaGetLastError());
+  return pcc::launch_split(refine_nn_straight_kernel, nt, splits, 0,
+                           static_cast<cudaStream_t>(stream), q, b, b_orig,
+                           cand, tiles, out_d, out_i, w, exclude_self,
+                           splits);
+}
+
+// Registers a thread and resident blocks an SM of the kernel (0 = ok).
+extern "C" int pcc_refine_nn_straight_occupancy(int* regs, int* blocks) {
+  return pcc::occupancy(refine_nn_straight_kernel, kChunk, 0, regs, blocks);
 }

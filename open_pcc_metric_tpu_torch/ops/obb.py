@@ -44,15 +44,24 @@ def _frame_extents(frames_flat: np.ndarray, verts: np.ndarray,
 
 def minimal_obb_extent(
     points: np.ndarray,
-    device: typing.Union[str, torch.device, None] = None,
+    device: typing.Union[bool, str, torch.device] = True,
 ) -> np.ndarray:
     """Extent (3 side lengths, unsorted frame order) of the approx-minimal OBB.
 
-    ``device=None`` keeps the projection sweep in numpy; otherwise it runs
-    in float64 torch on ``device`` (the cloud's device in
+    ``device`` has the JAX package's meaning: True (the default) runs the
+    projection sweep in float64 torch on the CUDA device (``resolve_device``
+    raises when there is none), False keeps it in numpy. A ``str`` or
+    ``torch.device`` names the device instead (the cloud's device in
     ``Cloud.get_obb_extent``).
     """
     from scipy.spatial import ConvexHull
+
+    from ..cloud import resolve_device
+
+    if device is True:
+        device = resolve_device(None)
+    elif device is not False:
+        device = torch.device(device)
 
     points = np.asarray(points, dtype=np.float64).reshape(-1, 3)
     if points.shape[0] < 4:
@@ -84,7 +93,7 @@ def minimal_obb_extent(
     frames = np.stack([u, v, w], axis=1)  # (T, 3, 3): rows are the new axes
     t = frames.shape[0]
 
-    if device is not None:
+    if device is not False:
         ext = _frame_extents(frames.reshape(3 * t, 3), verts,
                              device).reshape(t, 3)
     else:

@@ -26,24 +26,25 @@ The fixed-cap schedules' stage 1 (``nn_pruned``, ``knn_pruned``) runs:
   * ``select_candidates`` (K2c): each row's ``cap`` smallest entries of
     the (nta, ncb) lower-bound matrix. Kernel ``csrc/select_candidates.cu``,
     the port of ``select_candidates_pallas``.
-  * ``refine_nn_straight`` (K1b): K1 without gate or seed, g chunks a
-    step. Kernel ``csrc/refine_nn_straight.cu``, the port of
-    ``refine_nn_pallas``. ``refine_nn_fused`` (K1c) computes the same with
-    double-buffered asynchronous chunk copies; no schedule calls it.
+  * ``refine_nn_straight`` (K1b): K1 without gate or seed, on K1's
+    steps, word skip and split. Kernel ``csrc/refine_nn_straight.cu``, the
+    port of ``refine_nn_pallas``. ``refine_nn_fused`` (K1c) computes the
+    same with double-buffered asynchronous chunk copies; no schedule calls
+    it.
     Kernel ``csrc/refine_nn_fused.cu``, the port of
     ``refine_nn_pallas_fused``.
   * ``refine_knn_straight`` (K3b): K3 without gate or seed, merging a
     chunk only where it can change a buffer. Kernel
     ``csrc/refine_knn_straight.cu``, the port of ``refine_knn_pallas``.
 
-K1, K3, K4 and K7 (``refine_adaptive.py``) split each tile's live slots
-over a thread-block cluster of ``split_count(nt, w, sms)`` blocks (1 at
-probe shapes, up to ``MAX_SPLITS`` in the tiers) and merge the parts on
+K1, K1b, K3, K4 and K7 (``refine_adaptive.py``) split each tile's live
+slots over a thread-block cluster of ``split_count(nt, w, sms)`` blocks (1
+at probe shapes, up to ``MAX_SPLITS`` in the tiers) and merge the parts on
 chip; ``split_ranges`` is the parts' rule. The split changes no result
 (K4's sums only by float32 summation order), and neither does the kernels'
 skip of 32 staged records whose box a warp's rows are all bounded away
-from (K1, K3, K4, K6, K7; in the expanded form only below a guard on the
-row's best d), nor K3b's and K4's skip of slots by chunk box.
+from (K1, K1b, K3, K4, K6, K7; in the expanded form only below a guard on
+the row's best d), nor K3b's and K4's skip of slots by chunk box.
 
 On CUDA tensors each wrapper launches its hand-written kernel on the
 current stream (or raises); on CPU tensors it runs its plain PyTorch
@@ -556,15 +557,6 @@ def refine_knn_straight_reference(
                                 exclude_self=exclude_self)
 
 
-def chunks_per_step(w: int) -> int:
-    """K1b's chunks a step: 8, or the largest power of two dividing ``w``
-    (the JAX package's ``_nn_group``)."""
-    g = 8
-    while w % g:
-        g //= 2
-    return g
-
-
 # ---------------------------------------------------------------- launches
 
 # name -> (C entry, number of pointer arguments, number of int arguments)
@@ -882,22 +874,27 @@ def refine_nn_straight(
     cand: torch.Tensor,
     tiles: Opt = None,
     exclude_self: bool = False,
+    splits: typing.Optional[int] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """K1b (see ``refine_nn_straight_reference`` for the contract).
 
     CPU tensors run the plain version. CUDA tensors launch the kernel on
     the current stream, or raise: the kernel takes float32 only, every
     tensor contiguous and on one device, and ``cand``/``tiles`` values must
-    index chunks of ``b_sorted`` / tiles of ``q_sorted``. Each launch adds
-    one to ``refine_nn_straight.launches``.
+    index chunks of ``b_sorted`` / tiles of ``q_sorted``. Each tile's slots
+    are split over ``splits`` blocks of one cluster, as in ``refine_nn``
+    (a test argument, not a knob). Each launch adds one to
+    ``refine_nn_straight.launches``.
     """
+    _check_splits(splits)
     if q_sorted.device.type == "cpu":
         return refine_nn_straight_reference(q_sorted, b_sorted, b_orig, cand,
                                             tiles, exclude_self)
+    nt, w = cand.shape
     return _launch_ungated(
         refine_nn_straight, q_sorted, b_sorted, b_orig, cand, tiles,
-        (cand.shape[0], CHUNK),
-        [chunks_per_step(cand.shape[1]), int(bool(exclude_self))])
+        (nt, CHUNK), [int(bool(exclude_self)),
+                      splits or split_count(nt, w, sm_count(q_sorted.device))])
 
 
 def refine_nn_fused(
@@ -964,9 +961,9 @@ def refine_knn_straight(
 def occupancy(name: str) -> typing.Tuple[int, int]:
     """(registers a thread, resident blocks an SM) of the kernel ``name``
     (``refine_knn`` at one block a tile, ``refine_knn_straight``,
-    ``knn_moments``, ``nn_brute``, ``refine_nn_payload`` or
-    ``adaptive_refine``) on the current CUDA device, from the CUDA
-    runtime."""
+    ``knn_moments``, ``nn_brute``, ``refine_nn_payload``,
+    ``refine_nn_straight`` or ``adaptive_refine``) on the current CUDA
+    device, from the CUDA runtime."""
     from . import _build
 
     fn = getattr(_build.load(name).lib, f"pcc_{name}_occupancy")

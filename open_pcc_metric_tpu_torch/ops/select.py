@@ -9,7 +9,10 @@ compute the bounds on the fly and reduce them at once:
 
   * ``select_bbox`` (K2a, ``csrc/select_bbox.cu``): each query tile's
     ``cap`` lowest-bound search chunks, in ascending (rounded bound, chunk
-    index) order, with the rounded-down bound of each;
+    index) order, with the rounded-down bound of each; each key computed
+    once into shared memory, a radix select that stops once the
+    survivors fit ``survivor_room``, and a sort of the survivors in shared
+    memory;
   * ``count_bbox`` (K2b, ``csrc/count_bbox.cu``): each tile's count of
     chunks whose rounded bound is at most its threshold, inflated by
     ``count_slack``.
@@ -109,6 +112,45 @@ def _keys(a_lo, a_hi, b_lo, b_hi) -> typing.Tuple[torch.Tensor, int]:
 
 # ---------------------------------------------------------------- K2a
 
+# K2a's shared-key design (csrc/select_bbox.cu): a row's keys and up to
+# survivor_room(ncb, cap) survivors in shared memory, for rows of at most
+# SHARED_MAX_CHUNKS chunks; wider rows take the first design, which
+# recomputes the bounds in every pass. The kernel holds the same numbers.
+SHARED_MAX_CHUNKS = 28672
+MIN_ROOM = 256
+
+
+def survivor_room(ncb: int, cap: int) -> int:
+    """Survivors a shared-key row of K2a may hold before it sorts them."""
+    return min(ncb, max(MIN_ROOM, 2 * cap))
+
+
+def shared_bytes(ncb: int, cap: int) -> int:
+    """K2a's dynamic shared bytes for a call of (ncb, cap); 0 when the rows
+    are too wide for the shared-key design (chosen from ``ncb`` alone)."""
+    if ncb > SHARED_MAX_CHUNKS:
+        return 0
+    return 4 * (ncb + survivor_room(ncb, cap))
+
+
+def occupancy(ncb: int, cap: int) -> typing.Tuple[int, int, int]:
+    """(registers a thread, resident blocks an SM, dynamic shared bytes) of
+    the K2a kernel a call of (ncb, cap) launches, from the CUDA runtime on
+    the current device."""
+    import ctypes
+
+    from . import _build
+
+    fn = _build.load("select_bbox").lib.pcc_select_bbox_occupancy
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    regs, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = fn(ncb, cap, ctypes.byref(regs), ctypes.byref(blocks),
+            ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"select_bbox occupancy query failed ({rc})")
+    return regs.value, blocks.value, smem.value
+
 
 def select_bbox_reference(
     a_lo: torch.Tensor,
@@ -144,7 +186,9 @@ def select_bbox(
 
     CPU tensors run the plain version. CUDA tensors launch the kernel on
     the current stream, or raise: every tensor contiguous and on one
-    device. Each launch adds one to ``select_bbox.launches``.
+    device. Rows of at most ``SHARED_MAX_CHUNKS`` chunks take the
+    shared-key design, wider ones the first (``shared_bytes``). Each launch
+    adds one to ``select_bbox.launches``.
     """
     nta, ncb = _check_boxes(a_lo, a_hi, b_lo, b_hi)
     if not 1 <= cap <= ncb:

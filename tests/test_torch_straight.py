@@ -31,7 +31,7 @@ from open_pcc_metric_tpu_torch.cloud import Cloud
 from open_pcc_metric_tpu_torch.ops.grid import CHUNK, bbox_lower_bounds
 from open_pcc_metric_tpu_torch.ops.nn_pruned import tile_bounds
 from open_pcc_metric_tpu_torch.ops.refine import (
-    INT_MAX, _extract_k, chunks_per_step, refine_knn, refine_knn_straight,
+    INT_MAX, _extract_k, refine_knn, refine_knn_straight,
     refine_knn_straight_reference, refine_nn, refine_nn_fused,
     refine_nn_straight, refine_nn_straight_reference, select_candidates,
     select_candidates_reference)
@@ -91,7 +91,6 @@ def test_refine_nn_straight_matches_jax(kind, exclude_self, cap):
     want = refine_nn_pallas(*_jax_args(qg, bg, cand),
                             exclude_self=exclude_self, interpret=True)
     _assert_agree(kind, got, want, qg, bg, cand, exclude_self)
-    assert chunks_per_step(cap) == (8 if cap == 16 else 4)
 
 
 @pytest.mark.parametrize("cap", [16, 12])
@@ -215,7 +214,9 @@ def test_cpu_dispatch_and_validation():
         select_candidates(lb[0], 3)
     with pytest.raises(ValueError):
         select_candidates(lb, 0)
-    assert [chunks_per_step(w) for w in (32, 12, 6, 7, 512)] == [8, 4, 2, 1, 8]
+    for splits in (0, 9):
+        with pytest.raises(ValueError):
+            refine_nn_straight(*args, splits=splits)
 
 
 def _adversarial_rows():
