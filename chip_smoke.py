@@ -56,8 +56,8 @@ Hausdorff):
     ``PCC_NN_SCHED=fixed PCC_KNN_SCHED=fixed`` on the estimation path (K3b),
     k-NN sets equal to the default's, with one profiled cold call. Before
     them, K2c (800k and 2M, cap 32, 64 and 512) against its plain version,
-    its first design (``rounds=True``) and a stable sort, K1b (also at one
-    block a tile) and K1c against their plain version and K1 ungated, and
+    its first design (``rounds=True``) and a stable sort, K1b and K1c (both
+    also at one block a tile) against their plain version and K1 ungated, and
     K3b (800k a->a, float and reconst b->b; with and without its slot
     skip) against its plain version and K3 ungated, on the fixed stage-1
     tables. K1c has no caller in either package, so no path launches it.
@@ -85,11 +85,12 @@ It prints:
     and ``float pair under adaptive`` lines, and a ``schedule split`` line
     per pair size (each sweep's time under each schedule with its kernels
     replayed alone),
-  * K2a phases with ``graph_ms`` (its launches captured in one CUDA graph,
-    so the wrapper's host time between them does not count), the design
-    the call takes, registers, blocks an SM and shared bytes; K1b phases
-    with ``ms_splits_1``, ``bound_all_pairs_ms``, registers and blocks an
-    SM,
+  * K2a and K2b phases with ``graph_ms`` (their launches captured in one
+    CUDA graph, so the wrapper's host time between them does not count);
+    K2a with the design the call takes, registers, blocks an SM and shared
+    bytes; K2b with its split, ``ms_splits_1``, registers and blocks an SM;
+    K1b and K1c phases with ``ms_splits_1``, ``bound_all_pairs_ms``,
+    registers and blocks an SM (K1c also its chunks a step),
   * K2c phases with the first design's time (``rounds_ms``) and whether
     the kernel is at or below the stable sort; K3b phases with the time
     without the slot skip and both k-NN kernels' registers and blocks an
@@ -168,7 +169,8 @@ SKIP_GUARD = 2.0 ** 22
 OPS_PER_MEMBER = 16  # K4: one count and 15 multiply/adds per k-NN member
 OPS_PER_BOUND = 17  # a box bound: 6 sub, 6 max, 3 mul, 2 add
 OPS_SELECT = OPS_PER_BOUND + 2  # K2a: mask and pack the key
-OPS_COUNT = OPS_PER_BOUND + 3  # K2b: mask, compare and add
+OPS_COUNT = OPS_PER_BOUND + 2  # K2b: compare and add (the mask folds
+# into each tile's integer limit, csrc/count_bbox.cu)
 OPS_PICK = 1  # K2c: one compare per bound
 
 
@@ -347,6 +349,29 @@ def _skip_ops(q_points, b_points, cand, tiles, ncand, thresh, full=None,
     if full is not None:
         ops += OPS_PER_PAIR * int(live[full].sum()) * 256 * 256
     return ops
+
+
+def _count_ops(a_lo, a_hi, b_lo, b_hi, thr):
+    """Operations K2b must do on this data, for its bound: a box bound and
+    a compare for each tile and group of 32 consecutive chunks, and
+    OPS_COUNT for each chunk of the groups whose box's rounded bound is
+    within the tile's inflated threshold (the group skip cannot avoid
+    them; csrc/count_bbox.cu)."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.grid import bbox_lower_bounds
+    from open_pcc_metric_tpu_torch.ops.select import inflate, mask_lb, pad128
+
+    ncb = b_lo.shape[0]
+    starts = torch.arange(0, ncb, 32, device=b_lo.device)
+    member = torch.clamp(starts[:, None] + torch.arange(32, device=b_lo.device),
+                         max=ncb - 1)  # a short last group repeats its last
+    lo, hi = b_lo[member].amin(1), b_hi[member].amax(1)
+    near = (mask_lb(bbox_lower_bounds(a_lo, a_hi, lo, hi), pad128(ncb))
+            <= inflate(thr, ncb)[:, None])
+    sizes = torch.clamp(ncb - starts, max=32).float()
+    return ((OPS_PER_BOUND + 1) * near.numel()
+            + OPS_COUNT * float((near.float() @ sizes).sum()))
 
 
 def _counts_of(dist, lb, valid_t):
@@ -1581,14 +1606,20 @@ def select_phases(cases):
     prologue's shapes. ``cases`` are (name, query grid, search grid, valid
     queries, cap, exclude_self). K2a must give bit-identical cand and
     lb_sel; K2b, at the threshold of the K1 probe over K2a's first P1
-    chunks, bit-identical counts. Returns (K2a records, K2b records)."""
+    chunks, bit-identical counts at the automatic split and at one block a
+    tile group, each timed eager and in a CUDA graph (``graph_ms``: the
+    kernel without the wrapper's host time), with its registers and blocks
+    an SM. Returns (K2a records, K2b records)."""
     import torch
 
     from open_pcc_metric_tpu_torch.ops.nn_pruned import cert_ub, tile_boxes
-    from open_pcc_metric_tpu_torch.ops.refine import refine_nn
+    from open_pcc_metric_tpu_torch.ops.refine import (
+        occupancy, refine_nn, sm_count)
     from open_pcc_metric_tpu_torch.ops.select import (
-        count_bbox, count_bbox_reference, select_bbox, select_bbox_reference)
+        count_bbox, count_bbox_reference, count_split, select_bbox,
+        select_bbox_reference)
 
+    k2b_occ = occupancy("count_bbox")
     k2a, k2b = [], []
     for name, gq, gs, nq, cap, ex in cases:
         valid_t, a_lo, a_hi = tile_boxes(gq, nq)
@@ -1620,20 +1651,32 @@ def select_phases(cases):
         d1, _ = refine_nn(gq.points, gs.points, gs.perm,
                           cand[:, :P1].contiguous(), exclude_self=ex)
         thr = cert_ub(d1, valid_t)
-        cnt = count_bbox(*boxes, thr)
-        torch.cuda.synchronize()
         want = count_bbox_reference(*boxes, thr)
-        if not _bit_equal(cnt, want):
-            raise AssertionError(f"K2b phase {name}: {int((cnt != want).sum())}"
-                                 " counts differ from count_bbox_reference")
-        bound_ms, bound_by = _bound(OPS_COUNT * nta * ncb, [*boxes, thr],
-                                    [cnt])
+        for splits in (None, 1):
+            cnt = count_bbox(*boxes, thr, splits=splits)
+            torch.cuda.synchronize()
+            if not _bit_equal(cnt, want):
+                raise AssertionError(
+                    f"K2b phase {name} at splits={splits}: "
+                    f"{int((cnt != want).sum())} counts differ from "
+                    "count_bbox_reference")
+        nbytes = sum(x.numel() * x.element_size() for x in (*boxes, thr, cnt))
+        bound_ms, bound_by = _bound_of(_count_ops(*boxes, thr), nbytes)
+        regs, per_sm = k2b_occ
         rec = {
             "phase": name + " (probe threshold)", "tiles": nta, "chunks": ncb,
             "mean_count": float(cnt.float().mean()), "max_abs_err": 0.0,
             "ms": _time_ms(lambda: count_bbox(*boxes, thr), 20),
+            "graph_ms": _graph_ms(lambda: count_bbox(*boxes, thr), 20),
+            "splits": count_split(nta, ncb, sm_count(thr.device)),
+            "ms_splits_1": _time_ms(
+                lambda: count_bbox(*boxes, thr, splits=1), 20),
+            "graph_ms_splits_1": _graph_ms(
+                lambda: count_bbox(*boxes, thr, splits=1), 20),
             "plain_ms": _time_ms(lambda: count_bbox_reference(*boxes, thr), 3),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_all_pairs_ms": _bound_of(OPS_COUNT * nta * ncb, nbytes)[0],
+            "registers": regs, "blocks_per_sm": per_sm,
         }
         print("kernel phase K2b " + json.dumps(rec), flush=True)
         k2b.append(rec)
@@ -2183,27 +2226,30 @@ def straight_phases(cases):
     """K1b and K1c against their plain version and K1 ungated on the card,
     on the fixed schedule's stage-1 table of each case (name, query grid,
     search grid, valid queries, exclude_self; cap CAP): d and id
-    bit-identical on every row, K1b also at one block a tile, the times
-    printed. K1b's bound counts what its word skip cannot avoid
+    bit-identical on every row, K1b and K1c also at one block a tile, the
+    times printed. Both bounds count what the word skip cannot avoid
     (``_skip_ops`` against each row's final d) and the bytes the call reads
-    (``_refine_bytes``), with the all-pairs bound beside it and its
-    registers and blocks an SM; K1c, which skips no word, keeps the
-    all-pairs bound. Returns (K1b records, K1c records)."""
+    (``_refine_bytes``), with the all-pairs bound beside them, the split,
+    registers and blocks an SM, and K1c's chunks a step (``ASYNC_DEPTH``).
+    Returns (K1b records, K1c records)."""
     import torch
 
     from open_pcc_metric_tpu_torch.ops.refine import (
-        occupancy, refine_nn, refine_nn_fused, refine_nn_straight,
-        refine_nn_straight_reference, sm_count, split_count)
+        ASYNC_DEPTH, occupancy, refine_nn, refine_nn_fused,
+        refine_nn_straight, refine_nn_straight_reference, sm_count,
+        split_count)
 
-    regs, per_sm = occupancy("refine_nn_straight")
+    occ = {fn: occupancy(fn.__name__)
+           for fn in (refine_nn_straight, refine_nn_fused)}
     k1b, k1c = [], []
     for name, gq, gs, nq, ex in cases:
         cand = fixed_table(gq, gs, nq, CAP)[2]
         args = (gq.points, gs.points, gs.perm, cand)
         outs = {fn.__name__: fn(*args, exclude_self=ex) for fn in (
             refine_nn_straight, refine_nn_fused, refine_nn)}
-        outs["refine_nn_straight splits=1"] = refine_nn_straight(
-            *args, exclude_self=ex, splits=1)
+        for fn in (refine_nn_straight, refine_nn_fused):
+            outs[fn.__name__ + " splits=1"] = fn(*args, exclude_self=ex,
+                                                 splits=1)
         torch.cuda.synchronize()
         want, plain_ms = _once_ms(
             lambda: refine_nn_straight_reference(*args, exclude_self=ex))
@@ -2213,31 +2259,32 @@ def straight_phases(cases):
                                      "differs from the plain version")
         nbytes = _refine_bytes(*args, None, None, None, want)
         all_pairs = _bound_of(OPS_PER_PAIR * _live_pairs(cand, None), nbytes)
-        skip_bound = _bound_of(
+        bound_ms, bound_by = _bound_of(
             _skip_ops(gq.points, gs.points, cand, None, None, want[0]),
             nbytes)
         ms = {fn.__name__: _time_ms(lambda fn=fn: fn(*args, exclude_self=ex),
                                     20)
               for fn in (refine_nn_straight, refine_nn_fused, refine_nn)}
         nt, w = cand.shape
-        for label, fn_name, recs in (("K1b", "refine_nn_straight", k1b),
-                                     ("K1c", "refine_nn_fused", k1c)):
-            bound_ms, bound_by = skip_bound if label == "K1b" else all_pairs
+        for label, fn, recs in (("K1b", refine_nn_straight, k1b),
+                                ("K1c", refine_nn_fused, k1c)):
+            regs, per_sm = occ[fn]
             rec = {
                 "phase": name, "tiles": nt, "slots": w,
                 "compared": "every row, with the plain version and K1 ungated",
-                "max_abs_err": 0.0, "ms": ms[fn_name], "plain_ms": plain_ms,
+                "max_abs_err": 0.0, "ms": ms[fn.__name__],
+                "plain_ms": plain_ms,
                 "k1b_ms": ms["refine_nn_straight"],
                 "k1c_ms": ms["refine_nn_fused"], "k1_ms": ms["refine_nn"],
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "splits": split_count(nt, w, sm_count(cand.device)),
+                "ms_splits_1": _time_ms(lambda fn=fn: fn(
+                    *args, exclude_self=ex, splits=1), 20),
+                "bound_all_pairs_ms": all_pairs[0],
+                "registers": regs, "blocks_per_sm": per_sm,
             }
-            if label == "K1b":
-                rec.update({
-                    "splits": split_count(nt, w, sm_count(cand.device)),
-                    "ms_splits_1": _time_ms(lambda: refine_nn_straight(
-                        *args, exclude_self=ex, splits=1), 20),
-                    "bound_all_pairs_ms": all_pairs[0],
-                    "registers": regs, "blocks_per_sm": per_sm})
+            if label == "K1c":
+                rec["chunks_a_step"] = ASYNC_DEPTH
             print(f"kernel phase {label} " + json.dumps(rec), flush=True)
             recs.append(rec)
     return k1b, k1c
@@ -2433,6 +2480,7 @@ def main() -> int:
     k2a_recs, k2b_recs = select_phases([
         ("800k a->b", ga, gb, a.n, CAP, False),
         ("800k b->a", gb, ga, b.n, CAP, False),
+        ("800k self a->a", ga, ga, a.n, CAP, True),
         ("800k a->b escalated cap", ga, gb, a.n, 512, False),
         ("800k float a->b", gf, gb, fcloud.n, CAP, False),
     ])

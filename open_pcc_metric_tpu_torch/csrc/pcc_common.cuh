@@ -21,10 +21,11 @@
 // K4 share the split of a tile's slot range over a thread-block cluster
 // (split_begin, launch_split) and the skip of 32-record words by their box
 // (stage_chunk_boxed, point_box_lb); K5 splits b's rows the same way
-// (launch_split_threads, at its own block size). K3, K3b, K4, K5, K6 and K7
-// report their registers and resident blocks through occupancy. The 1-NN
-// refines K1, K6 and K7 take their step, scan, skip and merge from
-// pcc_nn.cuh, the k-NN refines theirs from pcc_knn.cuh.
+// (launch_split_threads, at its own block size), and K2b its chunk range.
+// K1b, K1c, K2b, K3, K3b, K4, K5, K6 and K7 report their registers and
+// resident blocks through occupancy. The 1-NN refines K1, K1b, K1c, K6 and
+// K7 take their step, scan, skip and merge from pcc_nn.cuh, the k-NN
+// refines theirs from pcc_knn.cuh.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,9 +1,12 @@
 // The 1-NN refines' device pieces, shared by K1 (refine_nn.cu), the payload
-// refine K6 (refine_nn_payload.cu) and the adaptive refine K7
-// (adaptive_refine.cu): the staged step of up to kStage chunks, the scan of
-// one staged chunk that skips a warp's 32-record word by its box, the walk
-// of a slot range in such steps, and the cluster's lexicographic-minimum
-// merge of a split tile. refine_nn.cu's note gives the design.
+// refine K6 (refine_nn_payload.cu), the adaptive refine K7
+// (adaptive_refine.cu) and the fixed schedule's K1b (refine_nn_straight.cu)
+// and K1c (refine_nn_fused.cu): the staged step of up to kStage chunks, the
+// scan of one staged chunk that skips a warp's 32-record word by its box,
+// the walk of a slot range in such steps (walk_async: K1c's, with the next
+// step's chunks copied by cp.async while this one is scanned), and the
+// cluster's lexicographic-minimum merge of a split tile. refine_nn.cu's
+// note gives the design.
 //
 // The word skip. A warp skips a word when every one of its rows may skip
 // it (may_skip): the row's bound to the word's box, pcc::point_box_lb, is
@@ -164,6 +167,85 @@ __device__ __forceinline__ void walk(Staged<kExpanded>& st, Stage stage,
         best.d = md;
         best.i = mi;
         if (kCol) best.col = c * kChunk + mj;
+      }
+    }
+  }
+}
+
+// Asynchronous 4-byte copy of global `gmem` to shared `smem` (cp.async.ca:
+// through L1, no registers), and the group commit and wait around it.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Chunks a step of walk_async: two steps, the one scanned and the one in
+// flight, fill Staged's kStage positions, so K1c's shared memory is K1b's.
+constexpr int kAsyncDepth = kStage / 2;
+
+// walk over slots[begin, end) with the difference form (no column), as
+// walk does, but with each step's records copied by cp.async into one half
+// of `st` while the block scans the other: thread `lane` copies record
+// `lane` of each chunk of step k + 1 straight into the Rec layout, then
+// scans step k. After its copies land (wait_group 0, the only group in
+// flight), a thread reads its records back and its warp reduces their word
+// boxes (store_word_box); one barrier a step then makes every record and
+// box visible and also frees the other half, whose chunks every thread
+// scanned before it, for the next step's copies.
+__device__ __forceinline__ void walk_async(Staged<false>& st, const float* b,
+                                           const int* b_orig,
+                                           const int* slots, int begin,
+                                           int end, int self_chunk,
+                                           const Query& q, int lane,
+                                           Best& best) {
+  const auto copy_step = [&](int s0, int half) {
+    const int n = min(kAsyncDepth, end - s0);
+    for (int s = 0; s < n; ++s) {
+      const int64_t src = static_cast<int64_t>(slots[s0 + s]) * kChunk + lane;
+      Rec& r = st.chunks[half * kAsyncDepth + s][lane];
+      cp_async4(&r.x, b + src * 3 + 0);
+      cp_async4(&r.y, b + src * 3 + 1);
+      cp_async4(&r.z, b + src * 3 + 2);
+      cp_async4(&r.id, b_orig + src);
+    }
+    cp_async_commit();
+  };
+  if (begin < end) copy_step(begin, 0);
+  int half = 0;
+  for (int s0 = begin; s0 < end; s0 += kAsyncDepth, half ^= 1) {
+    const int n = min(kAsyncDepth, end - s0);
+    cp_async_wait_all();  // this thread's records of this step have landed
+    for (int s = 0; s < n; ++s) {
+      const int p = half * kAsyncDepth + s;
+      const Rec r = st.chunks[p][lane];
+      store_word_box(st.boxes[p], r.x, r.y, r.z, lane);
+    }
+    __syncthreads();  // the step is visible; the other half is free
+    if (s0 + kAsyncDepth < end) copy_step(s0 + kAsyncDepth, half ^ 1);
+    for (int s = 0; s < n; ++s) {
+      const int c = slots[s0 + s];
+      const int p = half * kAsyncDepth + s;
+      float md = inf();
+      int mi = INT_MAX;
+      int mj = 0;
+      if (c == self_chunk) {
+        scan_chunk<false, true, false>(st, p, q, lane, best.d, md, mi, mj);
+      } else {
+        scan_chunk<false, false, false>(st, p, q, lane, best.d, md, mi, mj);
+      }
+      if (lex_less(md, mi, best.d, best.i)) {
+        best.d = md;
+        best.i = mi;
       }
     }
   }

@@ -74,6 +74,9 @@ PAYLOAD_F = 16  # K6 payload rows: [pts 3, col 3, nrm 3, 0 x 7]
 MAX_SPLITS = 8
 SPLIT_BLOCKS_PER_SM = 4
 MIN_SPLIT_SLOTS = 16
+# K1c's chunks a step, two steps (the one scanned, the one in flight) in
+# K1b's 8-chunk buffer (csrc/pcc_nn.cuh kAsyncDepth).
+ASYNC_DEPTH = 4
 
 # The plain versions materialise (tiles, 256, slots * 256) blocks; this
 # bounds one block's element count (64 MB of float32).
@@ -559,7 +562,8 @@ def refine_knn_straight_reference(
 
 # ---------------------------------------------------------------- launches
 
-# name -> (C entry, number of pointer arguments, number of int arguments)
+# name -> (C entry, number of pointer arguments, number of int arguments[,
+# number of float arguments after the ints]); the stream comes last
 _ENTRIES = {
     "refine_nn": ("pcc_refine_nn", 10, 5),
     "refine_nn_payload": ("pcc_refine_nn_payload", 8, 3),
@@ -569,10 +573,10 @@ _ENTRIES = {
     "knn_moments": ("pcc_knn_moments", 12, 3),
     "nn_brute": ("pcc_nn_brute", 4, 4),  # K5, wrapped by ops/nn.nn_argmin
     "select_bbox": ("pcc_select_bbox", 6, 4),  # K2a, ops/select.select_bbox
-    "count_bbox": ("pcc_count_bbox", 6, 3),  # K2b, ops/select.count_bbox
+    "count_bbox": ("pcc_count_bbox", 6, 4, 1),  # K2b, ops/select.count_bbox
     "select_candidates": ("pcc_select_candidates", 2, 4),
     "refine_nn_straight": ("pcc_refine_nn_straight", 7, 4),
-    "refine_nn_fused": ("pcc_refine_nn_fused", 7, 3),
+    "refine_nn_fused": ("pcc_refine_nn_fused", 7, 4),
     "refine_knn_straight": ("pcc_refine_knn_straight", 9, 4),
 }
 
@@ -586,11 +590,11 @@ def _entry(name: str):
     from . import _build
 
     lib = _build.load(name).lib
-    symbol, n_ptr, n_int = _ENTRIES[name]
+    symbol, n_ptr, n_int, *n_float = _ENTRIES[name]
     fn = getattr(lib, symbol)
     if not getattr(lib, "_pcc_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * n_ptr + [i] * n_int + [f] * sum(n_float) + [p]
         fn.restype = ctypes.c_int
         lib.pcc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pcc_cuda_error_string.restype = ctypes.c_char_p
@@ -612,11 +616,11 @@ def _cuda_checks(name: str, q_sorted: torch.Tensor, tensors) -> None:
         raise ValueError(f"the CUDA kernel takes float32, not {q_sorted.dtype}")
 
 
-def _launch(name: str, device: torch.device, ptrs, ints) -> None:
+def _launch(name: str, device: torch.device, ptrs, scalars) -> None:
     fn, lib = _entry(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*[_ptr(x) for x in ptrs], *ints, stream)
+        rc = fn(*[_ptr(x) for x in ptrs], *scalars, stream)
     if rc != 0:
         msg = lib.pcc_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
@@ -904,23 +908,26 @@ def refine_nn_fused(
     cand: torch.Tensor,
     tiles: Opt = None,
     exclude_self: bool = False,
+    splits: typing.Optional[int] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """K1c: K1b's function (``refine_nn_straight_reference``) through the
-    double-buffered kernel. No schedule calls it.
+    kernel that copies the next ASYNC_DEPTH chunks while it scans these. No
+    schedule calls it.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel on
-    the current stream, or raise: as K1b, and ``b_sorted`` and ``b_orig``
-    16-byte aligned. Each launch adds one to ``refine_nn_fused.launches``.
+    the current stream, or raise, as K1b; ``splits`` as K1b's (a test
+    argument, not a knob). Each launch adds one to
+    ``refine_nn_fused.launches``.
     """
+    _check_splits(splits)
     if q_sorted.device.type == "cpu":
         return refine_nn_straight_reference(q_sorted, b_sorted, b_orig, cand,
                                             tiles, exclude_self)
-    if b_sorted.data_ptr() % 16 or b_orig.data_ptr() % 16:
-        raise ValueError("refine_nn_fused: b_sorted and b_orig must be "
-                         "16-byte aligned")
-    return _launch_ungated(refine_nn_fused, q_sorted, b_sorted, b_orig, cand,
-                           tiles, (cand.shape[0], CHUNK),
-                           [int(bool(exclude_self))])
+    nt, w = cand.shape
+    return _launch_ungated(
+        refine_nn_fused, q_sorted, b_sorted, b_orig, cand, tiles,
+        (nt, CHUNK), [int(bool(exclude_self)),
+                      splits or split_count(nt, w, sm_count(q_sorted.device))])
 
 
 def refine_knn_straight(
@@ -962,8 +969,8 @@ def occupancy(name: str) -> typing.Tuple[int, int]:
     """(registers a thread, resident blocks an SM) of the kernel ``name``
     (``refine_knn`` at one block a tile, ``refine_knn_straight``,
     ``knn_moments``, ``nn_brute``, ``refine_nn_payload``,
-    ``refine_nn_straight`` or ``adaptive_refine``) on the current CUDA
-    device, from the CUDA runtime."""
+    ``refine_nn_straight``, ``refine_nn_fused``, ``adaptive_refine`` or
+    ``count_bbox``) on the current CUDA device, from the CUDA runtime."""
     from . import _build
 
     fn = getattr(_build.load(name).lib, f"pcc_{name}_occupancy")

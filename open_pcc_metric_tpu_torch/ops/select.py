@@ -15,7 +15,10 @@ compute the bounds on the fly and reduce them at once:
     memory;
   * ``count_bbox`` (K2b, ``csrc/count_bbox.cu``): each tile's count of
     chunks whose rounded bound is at most its threshold, inflated by
-    ``count_slack``.
+    ``count_slack``; ``COUNT_TILES`` tiles a block over chunk boxes staged
+    in shared memory, groups of 32 chunks skipped exactly by their box's
+    bound, the chunk range split over a cluster of ``count_split`` blocks,
+    the threshold inflated in the kernel.
 
 Packed keys. A non-negative float32's bits order like the float, so the
 bound's low ``key_bits(ncb_pad)`` mantissa bits are replaced by the chunk
@@ -45,7 +48,7 @@ import typing
 import torch
 
 from .grid import bbox_lower_bounds
-from .refine import _launch
+from .refine import MAX_SPLITS, _check_splits, _launch, sm_count
 
 
 def pad128(ncb: int) -> int:
@@ -208,9 +211,29 @@ def select_bbox(
 
 # ---------------------------------------------------------------- K2b
 
+# K2b's query tiles a block (csrc/count_bbox.cu kTilesBlock: 8 warps of 4),
+# and the fewest chunks a split of its chunk range is given.
+COUNT_TILES = 32
+MIN_SPLIT_CHUNKS = 256
+
+
+def count_split(nta: int, ncb: int, sms: int) -> int:
+    """K2b's blocks for each group of COUNT_TILES tiles, for ``nta`` tiles
+    over ``ncb`` chunks on a device of ``sms`` SMs, from the shapes alone:
+    enough to launch two blocks an SM, at most MAX_SPLITS and at most one
+    per MIN_SPLIT_CHUNKS chunks. On an H100 (132 SMs): 3 at 800k a->b (104
+    tile groups), 2 at 2M self (256)."""
+    groups = -(-nta // COUNT_TILES)
+    if groups <= 0:
+        return 1
+    want = -(-2 * sms // groups)
+    return max(1, min(want, MAX_SPLITS, -(-ncb // MIN_SPLIT_CHUNKS)))
+
 
 def inflate(thr: torch.Tensor, ncb: int) -> torch.Tensor:
-    """The count threshold ``thr * (1 + count_slack)``, in float32."""
+    """The count threshold ``thr * (1 + count_slack)``, in float32. The
+    factor is exact in float32, so this is one rounding of the product:
+    the kernel's ``__fmul_rn(thr, factor)``."""
     return thr.to(torch.float32) * (1.0 + count_slack(pad128(ncb)))
 
 
@@ -238,26 +261,32 @@ def count_bbox(
     b_lo: torch.Tensor,
     b_hi: torch.Tensor,
     thr: torch.Tensor,
+    splits: typing.Optional[int] = None,
 ) -> torch.Tensor:
-    """K2b (see ``count_bbox_reference`` for the contract). The wrapper
-    inflates ``thr`` in float32; the kernel compares with it as given.
+    """K2b (see ``count_bbox_reference`` for the contract). The kernel
+    inflates ``thr`` itself, by the float32 factor ``1 + count_slack``.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel on
     the current stream, or raise: every tensor contiguous and on one
-    device. Each launch adds one to ``count_bbox.launches``.
+    device. The chunk range is split over ``splits`` blocks of one cluster
+    (default ``count_split``; a test argument, not a knob). Each launch
+    adds one to ``count_bbox.launches``.
     """
+    _check_splits(splits)
     nta, ncb = _check_boxes(a_lo, a_hi, b_lo, b_hi)
     if tuple(thr.shape) != (nta,):
         raise ValueError(f"thr must be ({nta},)")
     if a_lo.device.type == "cpu":
         return count_bbox_reference(a_lo, a_hi, b_lo, b_hi, thr)
-    thr_inf = inflate(thr, ncb).contiguous()
-    dev = _cuda_checks("count_bbox", [a_lo, a_hi, b_lo, b_hi, thr_inf])
+    thr = thr.to(torch.float32).contiguous()
+    dev = _cuda_checks("count_bbox", [a_lo, a_hi, b_lo, b_hi, thr])
     out = torch.empty(nta, dtype=torch.int32, device=dev)
     if nta == 0:
         return out
-    _launch("count_bbox", dev, [a_lo, a_hi, b_lo, b_hi, thr_inf, out],
-            [nta, ncb, key_bits(pad128(ncb))])
+    _launch("count_bbox", dev, [a_lo, a_hi, b_lo, b_hi, thr, out],
+            [nta, ncb, key_bits(pad128(ncb)),
+             splits or count_split(nta, ncb, sm_count(dev)),
+             1.0 + count_slack(pad128(ncb))])
     count_bbox.launches += 1
     return out
 

@@ -1,16 +1,23 @@
-"""PyTorch port: the kernel build cache key (no nvcc needed).
+"""PyTorch port: the kernel build cache key and the sources' bindings (no
+nvcc needed).
 
 A library is reused only while its ``<hash>`` directory matches: the hash
 must cover the ``.cu`` source, every package header it includes (also
 through other headers) and the flags, so an edited shared header never
-loads a stale library.
+loads a stale library. The ctypes bindings (``refine._ENTRIES``) must
+match each C entry's parameters, and the 1-NN refines' shared walk must
+keep its text, so the refines that do not take the asynchronous walk keep
+their code.
 """
 import glob
+import hashlib
+import re
 import shutil
 
 import pytest
 
 from open_pcc_metric_tpu_torch.ops import _build
+from open_pcc_metric_tpu_torch.ops.refine import _ENTRIES
 
 KERNELS = ("refine_nn", "refine_knn", "knn_moments")
 
@@ -54,3 +61,60 @@ def test_digest_follows_sources_and_headers(csrc):
     src.write_text(src.read_text() + "\n")
     last = digests()
     assert [last[n] != mid[n] for n in KERNELS] == [False, True, False]
+
+
+def _read(name):
+    with open(f"{_build.CSRC_DIR}/{name}") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRIES))
+def test_entries_match_the_c_parameter_lists(name):
+    """Each binding's pointer, int and float counts are its C entry's, in
+    that order, with the stream last."""
+    symbol, n_ptr, n_int, *n_float = _ENTRIES[name]
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)',
+                       _read(f"{name}.cu"))[1]
+    kinds = ["ptr" if "*" in p else p.split()[0] for p in params.split(",")]
+    assert kinds == (["ptr"] * n_ptr + ["int"] * n_int
+                     + ["float"] * sum(n_float) + ["ptr"])
+    assert params.split(",")[-1].split() == ["void*", "stream"]
+
+
+def test_one_nn_refines_include_both_headers():
+    """The 1-NN refines take their step, skip, walk and merge from
+    pcc_nn.cuh and include pcc_common.cuh too."""
+    for name in ("refine_nn", "refine_nn_straight", "refine_nn_fused",
+                 "refine_nn_payload", "adaptive_refine"):
+        src = _read(f"{name}.cu")
+        assert '#include "pcc_common.cuh"' in src, name
+        assert '#include "pcc_nn.cuh"' in src, name
+
+
+def _function(src, signature):
+    """The text of the templated function whose declaration holds
+    ``signature``, from its template line to its closing brace."""
+    i = src.index(signature)
+    start = src.rfind("\n", 0, src.rfind("template", 0, i)) + 1
+    depth = 0
+    for k in range(src.index("{", i), len(src)):
+        depth += {"{": 1, "}": -1}.get(src[k], 0)
+        if depth == 0:
+            return src[start:k + 1]
+    raise AssertionError(f"no body for {signature}")
+
+
+def test_shared_walk_keeps_its_text():
+    """nn::walk and the scan it runs are the text K1, K1b, K6 and K7 were
+    compiled from; K1c's asynchronous walk sits beside them."""
+    src = _read("pcc_nn.cuh")
+    digests = {sig: hashlib.sha256(_function(src, sig).encode()).hexdigest()
+               for sig in ("void walk(", "void scan_chunk(")}
+    assert digests == {
+        "void walk(": "d17b3a1bc9d2532c424380158abb0423"
+                      "ed8bae9e0ecb4691fe3affc11020ce41",
+        "void scan_chunk(": "7861dc5f81c0ef9f7c3255306b8403ee"
+                            "fdbd509ceca329989aa0e877a7f78f82",
+    }
+    assert "constexpr int kStage = 8;" in src
+    assert "void walk_async(" in src
