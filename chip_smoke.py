@@ -60,7 +60,16 @@ Hausdorff):
     also at one block a tile) against their plain version and K1 ungated, and
     K3b (800k a->a, float and reconst b->b; with and without its slot
     skip) against its plain version and K3 ungated, on the fixed stage-1
-    tables. K1c has no caller in either package, so no path launches it.
+    tables. K1c has no caller in either package, so no path launches it;
+  * the QP sweep (``examples/qp_sweep.py``'s workflow) through the port:
+    ``datasets.write_qp_sweep`` at 800k points (the reference with
+    normals, six degraded frames without), ``batch.run_sweep`` over them
+    (K1, K3 and K4 launched, no error record), each record bit-equal to a
+    fresh ``fused_evaluate`` of its files loaded wide at the same pad, the
+    qp04 pair against a float64 oracle, a resumed sweep that evaluates
+    nothing, ``pad="per-pair"`` against ``pad="common"``, the sweep CLI's
+    journal equal to ``run_sweep``'s, and the thin upload of the reference
+    timed against the wide one and bit-identical to it.
 
 It prints:
 
@@ -95,6 +104,9 @@ It prints:
     the kernel is at or below the stable sort; K3b phases with the time
     without the slot skip and both k-NN kernels' registers and blocks an
     SM,
+  * the ``sweep data``, ``sweep path 800k`` (each pair's wall, Mpts/s and
+    stages, the stage medians after the first pair, the launch counts),
+    ``sweep checks`` and ``thin upload 800k`` lines,
   * a ``{"kernels": [...]}`` JSON line (launches on the paths, error and
     times against the plain version, the bound from this run's shapes and
     data, and for K5 and K2c one PyTorch library call's time), and last
@@ -130,6 +142,9 @@ PLAIN_BUDGET_S = 60.0  # a plain phase predicted slower runs on a subset
 MOM_RTOL, MOM_ATOL = 1e-6, 1e-4
 D2_TOL, PSNR_TOL = 5e-3, 1e-4  # dB; D2 with estimated normals, the rest
 ENGINE_RTOL = 1e-6  # DAG vs fused: the same exact NN terms, summed apart
+SWEEP_KW = dict(color_scheme="ycc", point_to_plane=True, d2_mode="pc_error")
+UPLOAD_RUNS = 5  # Cloud.from_numpy calls each, thin and wide, in turns
+PER_PAIR_RTOL = 1e-6  # pad="per-pair" vs "common", non-PSNR entries
 KERNELS = {
     "refine_nn": "open_pcc_metric_tpu/ops/refine_pallas.py:575",
     "refine_knn": "open_pcc_metric_tpu/ops/refine_pallas.py:861",
@@ -2422,6 +2437,264 @@ def fixed_split(a, b, smi):
     return out
 
 
+def _journal_metrics(metrics):
+    """A fused_evaluate result as run_sweep writes it into the journal."""
+    return {k: (v.tolist() if hasattr(v, "tolist") else float(v))
+            for k, v in metrics.items()}
+
+
+def _wide_cloud(raw, pad_to, dev):
+    import torch
+
+    from open_pcc_metric_tpu_torch.cloud import Cloud
+
+    return Cloud.from_numpy(raw.points, raw.colors, raw.normals,
+                            torch.float32, pad_to, False, device=dev)
+
+
+def _per_pair_misses(common, per_pair):
+    """Entries of the per-pair sweep off the common one: PSNRs by more
+    than PSNR_TOL dB, others by more than PER_PAIR_RTOL relative. Returns
+    ({"tag key": deviation}, the largest PSNR and relative deviations)."""
+    misses, worst_psnr, worst_rel = {}, 0.0, 0.0
+    for c, p in zip(common, per_pair):
+        for k, v in c["metrics"].items():
+            w = np.asarray(v, np.float64)
+            g = np.asarray(p["metrics"][k], np.float64)
+            if np.array_equal(g, w):
+                continue
+            if "psnr" in k:
+                dev = float(np.max(np.abs(g - w)))
+                worst_psnr = max(worst_psnr, dev)
+                bad = dev > PSNR_TOL
+            else:
+                dev = float(np.max(np.abs(g - w) / np.maximum(
+                    np.abs(w), np.finfo(np.float64).tiny)))
+                worst_rel = max(worst_rel, dev)
+                bad = dev > PER_PAIR_RTOL
+            if bad:
+                misses[f"{c['tag']} {k}"] = dev
+    return misses, worst_psnr, worst_rel
+
+
+def _qp04_oracle(ref_raw, deg_raw, deg, metrics):
+    """The qp04 pair's PSNRs against a float64 evaluation: scipy oracle
+    sweeps, the reference's file normals and float64 LAPACK normals of the
+    degraded cloud's oracle 30-NN sets; D2 entries within D2_TOL, the
+    others within PSNR_TOL.
+
+    The degraded points are multiples of 2^(4/6), not integers, and a
+    float32 cloud holds them rounded to float32: that moves their squared
+    distances and reorders neighbours that the lattice makes equidistant,
+    so the 30-NN sets of the float64 coordinates are not the float32
+    cloud's. The oracle therefore evaluates, in float64, the coordinates
+    the cloud holds (``float32_points``, held to the bars); the same
+    evaluation of the float64 file coordinates is reported beside it
+    (``float64_points``), each with the rows whose 30-NN set differs from
+    the port's (``knn_sets_differ``)."""
+    import bench
+    from open_pcc_metric_tpu_torch.ops.knn_pruned import knn_pruned
+
+    idx, _ = knn_pruned(deg.points, deg.points, deg.n, deg.n, k=K,
+                        cap=KCAP, fallback_tiles=KFT)
+    port_sets = np.sort(idx[: deg.n].cpu().numpy(), axis=1)
+    out = {}
+    for label, held in (("float32_points", True), ("float64_points", False)):
+        opts = ref_raw.points
+        pts = deg_raw.points
+        if held:
+            opts = opts.astype(np.float32).astype(np.float64)
+            pts = pts.astype(np.float32).astype(np.float64)
+        origin = (opts, ref_raw.colors, ref_raw.normals)
+        oi, _ = bench._oracle_knn_fast(pts, pts, K)
+        neigh = pts[oi]
+        cen = neigh - neigh.mean(axis=1, keepdims=True)
+        cov = np.einsum("nki,nkj->nij", cen, cen) / K
+        reconst = (pts, deg_raw.colors, np.linalg.eigh(cov)[1][:, :, 0])
+        sweeps = {
+            "a->b": bench._oracle_nn_fast(opts, pts),
+            "b->a": bench._oracle_nn_fast(pts, opts),
+            "self a->a": bench._oracle_nn_fast(opts, opts,
+                                               exclude_self=True)}
+        want = _want_psnrs(origin, reconst, sweeps, origin[2], reconst[2])
+        deltas = _psnr_deltas(metrics, want)
+        out[label] = {
+            "knn_sets_differ": int(np.any(
+                np.sort(oi, axis=1) != port_sets, axis=1).sum()),
+            "max_dpsnr_d2": max(v for k, v in deltas.items()
+                                if k.startswith("d2_")),
+            "max_dpsnr_other": max(v for k, v in deltas.items()
+                                   if not k.startswith("d2_")),
+            "psnr_entries": len(want)}
+    held = out["float32_points"]
+    if not (held["max_dpsnr_d2"] <= D2_TOL
+            and held["max_dpsnr_other"] <= PSNR_TOL):
+        raise AssertionError(f"sweep qp04 vs the float64 oracle: {out}")
+    return out
+
+
+def upload_ab(raw, pad_to, dev, smi):
+    """Cloud.from_numpy onto the card, thin against wide, in turns: the
+    median of UPLOAD_RUNS calls each, every call ended by a synchronise;
+    the two clouds' tensors bit-identical."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.cloud import Cloud
+
+    args = (raw.points, raw.colors, raw.normals, torch.float32, pad_to)
+    times = {True: [], False: []}
+    clouds = {}
+    for i in range(2 * UPLOAD_RUNS):
+        thin = (i % 4) in (0, 3)  # thin, wide, wide, thin, ...
+        t0 = time.perf_counter()
+        clouds[thin] = Cloud.from_numpy(*args, thin, device=dev)
+        torch.cuda.synchronize()
+        times[thin].append(time.perf_counter() - t0)
+    for name in ("points", "colors", "normals"):
+        if not _bit_equal(getattr(clouds[True], name),
+                          getattr(clouds[False], name)):
+            raise AssertionError(f"the thin upload's {name} differ from the "
+                                 "wide upload's")
+    rows = clouds[True].padded_size
+    rec = {"n_points": clouds[True].n, "padded_rows": rows,
+           "thin_bytes": rows * (6 + 3 + 12), "wide_bytes": rows * 36,
+           "thin_ms": [t * 1e3 for t in times[True]],
+           "wide_ms": [t * 1e3 for t in times[False]],
+           "thin_median_ms": statistics.median(times[True]) * 1e3,
+           "wide_median_ms": statistics.median(times[False]) * 1e3,
+           "bit_identical": True, "card": smi}
+    print("thin upload 800k " + json.dumps(rec), flush=True)
+    return rec
+
+
+def sweep_path(dev, smi, n_points=N_POINTS):
+    """The QP-sweep workflow (examples/qp_sweep.py) through the port:
+    datasets.write_qp_sweep's reference with normals and six degraded
+    frames without, run_sweep over them (ycc, point-to-plane, pc_error),
+    the launch counts set to 0 just before and read just after. Checks:
+    no error record, K1, K3 and K4 launched; every record bit-equal to a
+    fresh fused_evaluate of the same files loaded wide at the same pad;
+    qp04 against the float64 oracle; a resumed sweep evaluates nothing
+    and returns the same records; pad="per-pair" against pad="common";
+    the CLI's journal equal to run_sweep's; the thin upload bit-equal to
+    the wide one."""
+    import tempfile
+
+    from open_pcc_metric_tpu_torch import datasets
+    from open_pcc_metric_tpu_torch.batch import SweepItem, run_sweep
+    from open_pcc_metric_tpu_torch.cloud import pad_bucket
+    from open_pcc_metric_tpu_torch.io import point_count, read_point_cloud
+    from open_pcc_metric_tpu_torch.ops.fused import fused_evaluate
+
+    with tempfile.TemporaryDirectory(prefix="pcc_sweep_") as tmp:
+        t0 = time.perf_counter()
+        ref, degraded = datasets.write_qp_sweep(tmp, n_points=n_points)
+        items = [SweepItem(ref, p, f"qp{qp:02d}") for qp, p in degraded]
+        pad_to = pad_bucket(max(point_count(p) for p in
+                                [ref] + [p for _, p in degraded]))
+        print("sweep data " + json.dumps({
+            "reference_points": point_count(ref),
+            "degraded_points": {it.tag: point_count(it.pcloud)
+                                for it in items},
+            "pad_to": pad_to, "write_s": time.perf_counter() - t0}),
+            flush=True)
+
+        journal = os.path.join(tmp, "sweep.jsonl")
+        restore = _guarded(_plain_names())
+        try:
+            _reset_launches()
+            t0 = time.perf_counter()
+            records = run_sweep(items, journal, device=dev, **SWEEP_KW)
+            sweep_s = time.perf_counter() - t0
+            launches = _launches()
+        finally:
+            restore()
+        errors = {r["tag"]: r["error"] for r in records if "error" in r}
+        if errors:
+            raise AssertionError(f"the sweep wrote error records: {errors}")
+        for name in ("refine_nn", "refine_knn", "knn_moments"):
+            if launches[name] <= 0:
+                raise AssertionError(f"the sweep launched {name} no time")
+        stages = {s: statistics.median(r["stages"][s] for r in records[1:])
+                  for s in ("parse_s", "upload_s", "load_wait_s", "eval_s")}
+        print("sweep path 800k " + json.dumps({
+            "pairs": [{"tag": r["tag"], "wall_s": r["wall_s"],
+                       "mpts_per_s": r["mpoints_per_sec"],
+                       "stages": r["stages"]} for r in records],
+            "sweep_s": sweep_s,
+            "stage_medians_after_first": stages,
+            "launches": {k: v for k, v in launches.items() if v},
+            "card": smi}), flush=True)
+
+        # Each record against a fresh evaluation of its files, loaded wide.
+        ref_raw = read_point_cloud(ref)
+        origin = _wide_cloud(ref_raw, pad_to, dev)
+        checks = {}
+        for rec in records:
+            raw = read_point_cloud(rec["pcloud"])
+            deg = _wide_cloud(raw, pad_to, dev)
+            fresh = fused_evaluate(origin, deg, **SWEEP_KW)
+            got = _journal_metrics(fresh)
+            off = [k for k in got if got[k] != rec["metrics"][k]]
+            if off:
+                raise AssertionError(f"sweep {rec['tag']}: {off} differ from "
+                                     "a fresh wide evaluation")
+            if rec["tag"] == "qp04":
+                checks["qp04_oracle"] = _qp04_oracle(ref_raw, raw, deg,
+                                                     fresh)
+        checks["records_equal_fresh_wide_loads"] = len(records)
+        del origin, deg
+
+        _reset_launches()
+        t0 = time.perf_counter()
+        resumed = run_sweep(items, journal, device=dev, **SWEEP_KW)
+        checks["resume_s"] = time.perf_counter() - t0
+        if resumed != records or any(_launches().values()):
+            raise AssertionError("the resumed sweep evaluated a frame or "
+                                 "returned other records")
+        checks["resume_evaluates_nothing"] = True
+
+        per_pair = run_sweep(items, os.path.join(tmp, "per_pair.jsonl"),
+                             pad="per-pair", device=dev, **SWEEP_KW)
+        misses, worst_psnr, worst_rel = _per_pair_misses(records, per_pair)
+        checks["per_pair_vs_common"] = {
+            "max_dpsnr": worst_psnr, "max_rel": worst_rel, "misses": misses}
+        if misses:
+            print("sweep checks " + json.dumps(checks), flush=True)
+            raise AssertionError(f"pad='per-pair' misses pad='common': "
+                                 f"{misses}")
+
+        manifest = os.path.join(tmp, "manifest.csv")
+        with open(manifest, "w") as f:
+            f.write("".join(f"{it.ocloud},{it.pcloud},{it.tag}\n"
+                            for it in items))
+        cli_journal = os.path.join(tmp, "cli.jsonl")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "open_pcc_metric_tpu_torch.batch",
+             "--manifest", manifest, "--journal", cli_journal, "--color",
+             "ycc", "--point-to-plane", "--d2-mode", "pc_error",
+             "--device", dev.type],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the sweep CLI failed: {proc.stderr[-3000:]}")
+        last = proc.stdout.strip().splitlines()[-1]
+        if last != f"{len(items)}/{len(items)} frames evaluated -> " \
+                   f"{cli_journal}":
+            raise AssertionError(f"the sweep CLI printed {last!r}")
+        with open(cli_journal) as f:
+            cli = [json.loads(line) for line in f]
+        if [r["metrics"] for r in cli] != [r["metrics"] for r in records]:
+            raise AssertionError("the CLI's journal differs from run_sweep's")
+        checks["cli_journal_equal"] = True
+        checks["cli_s"] = time.perf_counter() - t0
+        checks["card"] = smi
+        print("sweep checks " + json.dumps(checks), flush=True)
+        upload = upload_ab(ref_raw, pad_to, dev, smi)
+    return records, launches, upload
+
+
 def main() -> int:
     import torch
 
@@ -2763,6 +3036,10 @@ def main() -> int:
     print("adaptive path 2M " + json.dumps(rec), flush=True)
     schedule_split(a, b, "2M", smi, payload=False)
     del a, b
+    torch.cuda.empty_cache()
+
+    # The QP sweep: run_sweep over six degraded frames of one reference.
+    sweep_path(dev, smi)
     torch.cuda.empty_cache()
 
     for name in ("jax", "open_pcc_metric_tpu"):

@@ -34,6 +34,56 @@ MXU_EXACT_MAX_COORD = 1600.0
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
+# --- thin host->device transfers -------------------------------------------
+# When a cloud's payload is exactly representable in a narrower dtype —
+# integer voxel coordinates in int16, 8-bit colours in uint8 — uploading the
+# narrow array and widening it on the device is bit-identical and moves 21
+# bytes a point instead of 36 (normals stay float32). The widen steps are
+# plain torch ops on the cloud's device, queued on the current stream.
+
+
+def _hydrate_points_i16(pts_i16: torch.Tensor, n: int) -> torch.Tensor:
+    """(P, 3) int16 + valid count -> (P, 3) float32 with a PAD_SENTINEL tail.
+
+    Exact: |coord| <= 32766 int16 -> float32 is lossless (24-bit mantissa).
+    """
+    f = pts_i16.to(torch.float32)
+    rows = torch.arange(f.shape[0], device=f.device)[:, None] < n
+    return torch.where(rows, f, torch.full_like(f, PAD_SENTINEL))
+
+
+# Canonical u8 -> float32 colour values, computed on the host in float64
+# (the loaders' conversion). A 256-entry table gather is bit-exact; an
+# arithmetic form is not: torch rewrites c / 255 as c * (1 / 255), which
+# differs by 1 ulp for 46 of the 256 values.
+_U8_COLOR_TABLE = np.asarray(
+    np.arange(256, dtype=np.float64) / 255.0, dtype=np.float32)
+
+
+def _hydrate_colors_u8(col_u8: torch.Tensor) -> torch.Tensor:
+    """(P, 3) uint8 -> float32 in [0, 1], via the canonical table."""
+    table = torch.from_numpy(_U8_COLOR_TABLE).to(col_u8.device)
+    return table[col_u8.long()]
+
+
+def _as_int16_points(points: np.ndarray) -> typing.Optional[np.ndarray]:
+    """points (n, 3) float64 -> int16 when exactly representable."""
+    r = np.rint(points)
+    if np.abs(r).max(initial=0.0) <= 32766.0 and np.array_equal(r, points):
+        return r.astype(np.int16)
+    return None
+
+
+def _as_uint8_colors(colors: np.ndarray) -> typing.Optional[np.ndarray]:
+    """colors (n, 3) float64 in [0, 1] -> uint8 when exactly c = u/255."""
+    scaled = colors * 255.0
+    r = np.rint(scaled)
+    if r.min(initial=0.0) < 0.0 or r.max(initial=0.0) > 255.0:
+        return None
+    if np.array_equal(r / 255.0, colors):
+        return r.astype(np.uint8)
+    return None
+
 
 def round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
@@ -133,6 +183,7 @@ class Cloud:
         normals: typing.Optional[np.ndarray] = None,
         dtype: torch.dtype = torch.float32,
         pad_to: typing.Optional[int] = None,
+        thin: typing.Union[bool, str] = "auto",
         *,
         device: typing.Union[str, torch.device, None] = None,
         pad_policy: str = "auto",
@@ -143,14 +194,23 @@ class Cloud:
         ``PCC_PAD_POLICY`` policy, read at this call).
 
         The positional arguments are the JAX package's (points, colors,
-        normals, dtype, pad_to); ``device`` and ``pad_policy`` are
+        normals, dtype, pad_to, thin); ``device`` and ``pad_policy`` are
         keyword-only.
 
-        Padding and the float64 -> ``dtype`` cast happen on the host, so the
-        device receives exactly the bits the JAX package uploads.
+        ``thin`` ("auto", True or False) selects the narrow upload of a
+        float32 cloud: int16 points and uint8 colours, widened on the device
+        (``_hydrate_points_i16``, ``_hydrate_colors_u8``), each array only
+        when its values are exactly representable. "auto" means thin on a
+        CUDA device. Either way the device holds the same bits: padding and
+        the float64 -> ``dtype`` cast of a wide array happen on the host, so
+        the device receives exactly the bits the JAX package uploads.
         """
         if not isinstance(dtype, torch.dtype):
             raise TypeError(f"dtype must be a torch.dtype, not {dtype!r} "
+                            "(device is keyword-only)")
+        if not (isinstance(thin, bool) or (isinstance(thin, str)
+                                           and thin == "auto")):
+            raise TypeError(f"thin must be 'auto' or a bool, not {thin!r} "
                             "(device is keyword-only)")
         device = resolve_device(device)
         np_dtype = numpy_dtype(dtype)
@@ -161,22 +221,44 @@ class Cloud:
         p = pad_to if pad_to is not None else pad_bucket(n, pad_policy)
         if p < n:
             raise ValueError(f"pad_to={p} < n={n}")
+        if thin == "auto":
+            thin = device.type == "cuda"
+        thin = thin and dtype == torch.float32
 
-        def upload(values, fill, name):
+        def rows(values, name):
             if values is None:
                 return None
             values = np.asarray(values, dtype=np.float64).reshape(-1, 3)
             if values.shape[0] != n:
                 raise ValueError(f"{name}/points length mismatch")
-            buf = np.full((p, 3), fill, dtype=np.float64)
-            buf[:n] = values
-            return torch.from_numpy(buf.astype(np_dtype)).to(device)
+            return values
 
+        def padded(values, fill, np_type):
+            """Rows >= n filled on the host, then one upload; a float64
+            -> float32 cast rounds on the host."""
+            buf = np.full((p, 3), fill, dtype=np_type)
+            buf[:n] = values
+            return torch.from_numpy(buf).to(device)
+
+        colors, normals = rows(colors, "colors"), rows(normals, "normals")
+        tpoints = tcolors = None
+        if thin:
+            pts16 = _as_int16_points(points)
+            if pts16 is not None:
+                tpoints = _hydrate_points_i16(padded(pts16, 0, np.int16), n)
+            col8 = None if colors is None else _as_uint8_colors(colors)
+            if col8 is not None:
+                tcolors = _hydrate_colors_u8(padded(col8, 0, np.uint8))
+        if tpoints is None:
+            tpoints = padded(points, PAD_SENTINEL, np_dtype)
+        if tcolors is None and colors is not None:
+            tcolors = padded(colors, 0.0, np_dtype)
         return Cloud(
-            points=upload(points, PAD_SENTINEL, "points"),
+            points=tpoints,
             n=n,
-            colors=upload(colors, 0.0, "colors"),
-            normals=upload(normals, 0.0, "normals"),
+            colors=tcolors,
+            normals=None if normals is None else padded(normals, 0.0,
+                                                         np_dtype),
             host_points=points,
         )
 

@@ -30,6 +30,10 @@ def load_cloud(
     pad_to: typing.Optional[int] = None,
     device: Device = None,
 ) -> Cloud:
+    """Read a cloud file onto ``device`` (the CUDA device when None; raises
+    when there is none), padded to ``pad_to`` or its own bucket. ``thin``
+    stays "auto", as in the JAX package: on a CUDA device integer points
+    and 8-bit colours upload narrow and widen there (``Cloud.from_numpy``)."""
     raw = read_point_cloud(path)
     return Cloud.from_numpy(
         raw.points,

@@ -3,13 +3,14 @@
 The port's ``ops`` and ``utils`` export the JAX package's names (less
 ``enable_compile_cache``, which has no counterpart in eager PyTorch);
 ``Cloud.from_numpy`` takes JAX's positional order (points, colors,
-normals, dtype, pad_to) with ``device`` keyword-only; and
+normals, dtype, pad_to, thin) with ``device`` keyword-only; and
 ``minimal_obb_extent(device=True/False)`` has JAX's meaning: True runs the
 projection sweep on the CUDA device (raising without one), False keeps it
 in numpy. Every case here runs on the CPU in numpy or eager PyTorch: no
 JAX program is compiled.
 """
 import importlib
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,6 +87,19 @@ def test_from_numpy_positional_device_raises(device):
         Cloud.from_numpy(pts, None, None, device)
     with pytest.raises(TypeError):
         Cloud.from_numpy(pts, None, None, torch.float32, 256, device)
+
+
+def test_from_numpy_positional_names_match_jax():
+    """The port's positional parameters are JAX's, in JAX's order."""
+    def positional(fn):
+        return [p.name for p in inspect.signature(fn).parameters.values()
+                if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+
+    assert positional(Cloud.from_numpy) == positional(JCloud.from_numpy) == [
+        "points", "colors", "normals", "dtype", "pad_to", "thin"]
+    kw_only = [p.name for p in inspect.signature(
+        Cloud.from_numpy).parameters.values() if p.kind == p.KEYWORD_ONLY]
+    assert kw_only == ["device", "pad_policy"]
 
 
 def test_from_numpy_positional_matches_jax():
