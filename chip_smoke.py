@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds the hand-written CUDA kernels from ``open_pcc_metric_tpu_torch/csrc``
 (one nvcc per source, all started together), checks each against its plain
-PyTorch version at the shapes the evaluation paths give it, and drives four
+PyTorch version at the shapes the evaluation paths give it, and drives the
 paths on bench.py's voxelised pairs (ycc + point-to-plane + pc_error +
 Hausdorff):
 
@@ -69,7 +69,23 @@ Hausdorff):
     qp04 pair against a float64 oracle, a resumed sweep that evaluates
     nothing, ``pad="per-pair"`` against ``pad="common"``, the sweep CLI's
     journal equal to ``run_sweep``'s, and the thin upload of the reference
-    timed against the wide one and bit-identical to it.
+    timed against the wide one and bit-identical to it; then
+    ``batch.run_sweep_sharded`` over the same files on a (2, 1) mesh of
+    cuda:0 slots, each record within PSNR_TOL dB of ``run_sweep``'s with
+    min_sqrt and max_sqrt equal;
+  * the ring (``parallel/sharded.py``, one process driving a mesh whose
+    slots are torch devices): ``sharded_pair_stats_pruned_auto`` on the
+    800k pair with normals on a 1-slot mesh and a 4-slot ring on cuda:0
+    (K1 on every slot), every stat within RING_RTOL of the single-device
+    ``pair_stats``, the a->b ring bit-identical on valid rows to
+    ``nn_pruned_sorted``, and each of its K1 calls (captured: 200k-row
+    slots, rotated original ids, count-gated tables) bit-identical to the
+    plain version on the same inputs on valid rows, payload rows too; the
+    brute ring (``sharded_pair_stats``, plain torch as the JAX package's
+    is XLA) on the 60k pair against the fused path's stats;
+    ``ring_normals_pruned`` on 60k origins of three seeds against the
+    single-device estimate, and the 30-NN sets behind them against a
+    single-device search on the rows whose set no tie order changes.
 
 It prints:
 
@@ -106,8 +122,14 @@ It prints:
     SM,
   * the ``sweep data``, ``sweep path 800k`` (each pair's wall, Mpts/s and
     stages, the stage medians after the first pair, the launch counts),
-    ``sweep checks`` and ``thin upload 800k`` lines,
-  * a ``{"kernels": [...]}`` JSON line (launches on the paths, error and
+    ``sweep checks``, ``thin upload 800k`` and ``sharded sweep 800k``
+    (each group's wall and Mpts/s) lines,
+  * the ``ring path 800k 1-slot`` and ``4-slot`` lines (settled cap, K1
+    launches a call, first call, median of RUNS after one warm-up,
+    Mpts/s, the largest relative difference from ``pair_stats``), and the
+    ``ring brute 60k`` and ``ring normals 60k`` lines,
+  * a ``{"kernels": [...]}`` JSON line (launches on the paths, K1's also
+    on the ring's, error and
     times against the plain version, the bound from this run's shapes and
     data, and for K5 and K2c one PyTorch library call's time), and last
   * ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -145,6 +167,14 @@ ENGINE_RTOL = 1e-6  # DAG vs fused: the same exact NN terms, summed apart
 SWEEP_KW = dict(color_scheme="ycc", point_to_plane=True, d2_mode="pc_error")
 UPLOAD_RUNS = 5  # Cloud.from_numpy calls each, thin and wide, in turns
 PER_PAIR_RTOL = 1e-6  # pad="per-pair" vs "common", non-PSNR entries
+RING_SLOTS = 4  # the ring's slots on one card, the counterpart of 4 devices
+RING_RTOL = 1e-5  # ring stats vs the single-device pair_stats (bench.py's)
+RING_RUNS = 3  # timed calls of the brute ring at 60k
+NORMALS_Q, NORMALS_DOT = 0.001, 0.999  # |dot| quantile bar of the normals
+# Ring normals on rows whose 30-NN set is one whatever the tie order: the
+# same neighbours summed in another order (float32 roundings only).
+TIE_FREE_DOT = 1.0 - 1e-5
+NORMALS_SEEDS = (0, 1, 2)  # bench.make_clouds seeds of the ring normals
 KERNELS = {
     "refine_nn": "open_pcc_metric_tpu/ops/refine_pallas.py:575",
     "refine_knn": "open_pcc_metric_tpu/ops/refine_pallas.py:861",
@@ -2692,7 +2722,433 @@ def sweep_path(dev, smi, n_points=N_POINTS):
         checks["card"] = smi
         print("sweep checks " + json.dumps(checks), flush=True)
         upload = upload_ab(ref_raw, pad_to, dev, smi)
-    return records, launches, upload
+        sharded = sharded_sweep(items, records, tmp, dev, smi)
+    return records, launches, upload, sharded
+
+
+def sharded_sweep(items, records, tmp, dev, smi):
+    """run_sweep_sharded over the QP sweep's files on a (2, 1) mesh of
+    cuda:0 slots (two frames a group), the launch counts set to 0 just
+    before and read just after, every plain version guarded. Each record
+    against run_sweep's on the same files: PSNRs within PSNR_TOL dB,
+    min_sqrt and max_sqrt equal. Returns the line's record."""
+    from open_pcc_metric_tpu_torch.batch import run_sweep_sharded
+    from open_pcc_metric_tpu_torch.parallel import sharded
+    from open_pcc_metric_tpu_torch.parallel.sharded import make_mesh
+
+    mesh = make_mesh(devices=[dev] * 2, dp=2)
+    restore = _guarded(_plain_names() + [(sharded, "refine_nn_reference")])
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        got = run_sweep_sharded(items, os.path.join(tmp, "sharded.jsonl"),
+                                mesh=mesh, **SWEEP_KW)
+        sweep_s = time.perf_counter() - t0
+        launches = _launches()
+    finally:
+        restore()
+    if launches["refine_nn"] <= 0:
+        raise AssertionError("the sharded sweep launched K1 no time")
+    want = {r["tag"]: r["metrics"] for r in records}
+    worst = 0.0
+    for rec in got:
+        m = want[rec["tag"]]
+        for k, v in rec["metrics"].items():
+            if "psnr" in k:
+                dev_db = float(np.max(np.abs(np.asarray(v, np.float64)
+                                             - np.asarray(m[k], np.float64))))
+                worst = max(worst, dev_db)
+                if not dev_db <= PSNR_TOL:
+                    raise AssertionError(f"sharded sweep {rec['tag']} {k} "
+                                         f"off run_sweep by {dev_db} dB")
+        for k in ("min_sqrt", "max_sqrt"):
+            if rec["metrics"][k] != m[k]:
+                raise AssertionError(f"sharded sweep {rec['tag']} {k} "
+                                     "differs from run_sweep's")
+    out = {"mesh": list(mesh.devices.shape), "sweep_s": sweep_s,
+           "groups": [{"tags": [r["tag"] for r in got[g:g + 2]],
+                       "wall_s": got[g]["wall_s"],
+                       "group_mpts_per_s": got[g]["group_mpoints_per_sec"]}
+                      for g in range(0, len(got), 2)],
+           "max_dpsnr_vs_run_sweep": worst,
+           "launches": {k: v for k, v in launches.items() if v},
+           "card": smi}
+    print("sharded sweep 800k " + json.dumps(out), flush=True)
+    return out
+
+
+def _max_rel(stats, single):
+    """The largest relative difference of the ring's stats (frame 0) from
+    the single-device pair_stats (bench.py's measure)."""
+    worst = 0.0
+    for key, val in single.items():
+        if key == "nn_overflow":
+            continue
+        got = np.asarray(stats[key][0].cpu(), np.float64).reshape(-1)
+        want = np.asarray(val.cpu() if hasattr(val, "cpu") else val,
+                          np.float64).reshape(-1)
+        scale = np.maximum(np.abs(want), 1e-30)
+        worst = max(worst, float(np.max(np.abs(got - want) / scale)))
+    return worst
+
+
+def _ring_cloud(arrays, pad, dev, normals=True):
+    from open_pcc_metric_tpu_torch.cloud import Cloud
+
+    pts, col, nrm = arrays
+    return Cloud.from_numpy(pts, colors=col, normals=nrm if normals else None,
+                            pad_to=pad, device=dev)
+
+
+def _ring_pad(*clouds):
+    """One common pad for the ring's clouds, divisible by RING_SLOTS x 256."""
+    step = RING_SLOTS * 256
+    return -(-max(c[0].shape[0] for c in clouds) // step) * step
+
+
+def _plain_by_width(q, b, perm, cand, ncand, exclude_self):
+    """``refine_nn_reference`` on one K1 call's inputs, its tiles grouped
+    by live slot count: a group whose counts lie in (W/2, W] runs on the
+    table's first W columns (a tile's slots past its count are gated off
+    either way), so the plain version's work follows the call's live work,
+    not its table's width. Returns (d, ids), (nt, 256) each."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops import refine
+    from open_pcc_metric_tpu_torch.ops.grid import CHUNK
+
+    nt, w = cand.shape
+    live = (torch.full((nt,), w, dtype=torch.int32, device=cand.device)
+            if ncand is None else ncand)
+    out_d = torch.empty((nt, CHUNK), dtype=q.dtype, device=q.device)
+    out_i = torch.empty((nt, CHUNK), dtype=torch.int32, device=q.device)
+    lo, width = -1, 1
+    while lo < w:
+        sel = torch.nonzero((live > lo) & (live <= width)).reshape(-1)
+        if sel.numel():
+            d, i = refine.refine_nn_reference(
+                q, b, perm, cand[sel, :min(width, w)].contiguous(),
+                tiles=sel.to(torch.int32), ncand=live[sel].contiguous(),
+                exclude_self=exclude_self)
+            out_d[sel], out_i[sel] = d, i
+        lo, width = width, 2 * width
+    return out_d, out_i
+
+
+def _payload_at(pay, perm, ids):
+    """Each original id's payload row: the row of ``pay`` whose id in
+    ``perm`` it is, found by a sorted search (ids absent from ``perm``, the
+    INT_MAX of a row nothing reached, take any row)."""
+    import torch
+
+    order = torch.argsort(perm.long())
+    pos = torch.searchsorted(perm.long()[order], ids.long())
+    return pay[order[pos.clamp(max=order.numel() - 1)]]
+
+
+def ring_k1_calls(label, calls, q_slots, n_valid):
+    """Each K1 call of one ring search (``_refine_local_pallas``'s
+    arguments and results, captured) against the plain version on the same
+    inputs: d, original ids and payload rows bit-identical on every valid
+    query row (global row < ``n_valid``). Returns the line's fields: the
+    calls, the gated ones whose table is partial (a tile with live slots
+    below the table's width), the widest table, K1's device ms over the
+    calls (replayed, mean of 3) and the plain version's (once)."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops import refine
+    from open_pcc_metric_tpu_torch.ops.refine import INT_MAX
+
+    def k1():
+        for (q, b, perm, _, cand, ncand, _, excl), _ in calls:
+            refine.refine_nn(q, b, perm, cand.contiguous(), ncand=ncand,
+                             exclude_self=excl)
+
+    plains, plain_ms = _once_ms(lambda: [
+        _plain_by_width(q, b, perm, cand, ncand, excl)
+        for (q, b, perm, _, cand, ncand, _, excl), _ in calls])
+    k1_ms = _time_ms(k1, 3)
+    pl_rows = q_slots[0].shape[0]
+    partial = rows = 0
+    for ((q, _, perm, pay, cand, ncand, _, _), (d, i, p)), (pd, pi) in zip(
+            calls, plains):
+        me = next(j for j, x in enumerate(q_slots) if x is q)
+        valid = (me * pl_rows + torch.arange(pl_rows, device=q.device)
+                 < n_valid)
+        pd, pi = pd.reshape(-1), pi.reshape(-1)
+        if not (_bit_equal(d[valid], pd[valid])
+                and torch.equal(i[valid], pi[valid])):
+            raise AssertionError(f"{label}: a K1 call of slot {me} differs "
+                                 "from the plain version")
+        won = valid & (pi != INT_MAX)
+        if p is not None and not torch.equal(
+                p[won], _payload_at(pay, perm, pi)[won]):
+            raise AssertionError(f"{label}: a K1 call of slot {me} picked "
+                                 "payload rows off the plain version's")
+        if ncand is not None:
+            partial += int(bool(((ncand > 0)
+                                 & (ncand < cand.shape[1])).any()))
+        rows += int(valid.sum())
+    return {"k1_calls": len(calls), "partial_gated_calls": partial,
+            "widest_table": max(c[0][4].shape[1] for c in calls),
+            "valid_rows_compared": rows, "k1_ms": k1_ms,
+            "plain_ms": plain_ms}
+
+
+def ring_path(origin, reconst, dev, smi):
+    """The pruned ring (``sharded_pair_stats_pruned_auto``) on the 800k pair
+    with normals, packed at one pad divisible by RING_SLOTS x 256, on a
+    1-slot mesh (``make_mesh(1)``, bench.py's PCC_BENCH_SHARDED=1) and a
+    RING_SLOTS-slot ring on cuda:0: one warm-up (the ladder settles) and
+    RUNS timed calls each, every plain version guarded (and the ring's own
+    binding of ``refine_nn_reference``), the launch counts set to 0 just before and read just after.
+    Checks: every stat within RING_RTOL of the single-device pair_stats;
+    ``ring_nn_pruned`` a->b at the settled cap, with b's colours, normals
+    and points as payload, bit-identical in (d, original id) on every valid
+    row to the single-device ``nn_pruned_sorted``, its payload rows b's at
+    those ids, and each of its K1 calls bit-identical to the plain version
+    on the same inputs (``ring_k1_calls``); K1 launched. Returns {mesh
+    label: launches}."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.fused import _ladder, pair_stats
+    from open_pcc_metric_tpu_torch.ops.grid import CHUNK
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import nn_pruned_sorted
+    from open_pcc_metric_tpu_torch.parallel import sharded
+    from open_pcc_metric_tpu_torch.parallel.sharded import (
+        make_mesh, pack_sorted_frames, sharded_pair_stats_pruned_auto)
+
+    pad = _ring_pad(origin, reconst)
+    a, b = _ring_cloud(origin, pad, dev), _ring_cloud(reconst, pad, dev)
+    ga, gb = a.get_grid(), b.get_grid()
+    packed = pack_sorted_frames([a], [b], **SWEEP_KW)
+
+    def single_run(cap, ft):
+        st = pair_stats(a.points, b.points, a.n, b.n, a.colors, b.colors,
+                        a.normals, b.normals, ga, gb, backend="pruned",
+                        prune_cap=cap, prune_fallback=ft, **SWEEP_KW)
+        return st, bool(st["nn_overflow"])
+
+    def sweep_run(cap, ft):
+        r = nn_pruned_sorted(ga, gb, a.n, cap=cap, fallback_tiles=ft)
+        return r, bool(r[2])
+
+    single, _ = _ladder(pad // CHUNK, single_run, CAP, FALLBACK)
+    (want_d, want_i, _), _ = _ladder(pad // CHUNK, sweep_run, CAP, FALLBACK)
+    pay_b = torch.cat([packed["b_col_s"][0], packed["b_nrm_s"][0],
+                       packed["b_s"][0]], dim=1)
+    n_total = a.n + b.n
+    out = {}
+    for label, mesh in (("1-slot", make_mesh(1)),
+                        (f"{RING_SLOTS}-slot",
+                         make_mesh(devices=[dev] * RING_SLOTS))):
+        restore = _guarded(_plain_names() + [(sharded, "refine_nn_reference")])
+        try:
+            _reset_launches()
+            t0 = time.perf_counter()
+            stats = sharded_pair_stats_pruned_auto(mesh, packed, **SWEEP_KW)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            warm = _launches()["refine_nn"]
+            times = []
+            for _ in range(RUNS):
+                t0 = time.perf_counter()
+                stats = sharded_pair_stats_pruned_auto(mesh, packed,
+                                                       **SWEEP_KW)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            launches = _launches()
+        finally:
+            restore()
+        if launches["refine_nn"] <= 0:
+            raise AssertionError(f"the {label} ring launched K1 no time")
+        if bool(stats["nn_overflow"].any()):
+            raise AssertionError(f"the {label} ring ended overflowed")
+        worst = _max_rel(stats, single)
+        if not worst <= RING_RTOL:
+            raise AssertionError(f"the {label} ring's stats are off "
+                                 f"pair_stats by {worst:.3e} relative")
+        caps = [rung for key, (rung, _) in sharded._RING_LADDER.items()
+                if key[0] == mesh.devices.shape]
+        row = list(mesh.devices[0])
+
+        def slots(k):
+            return sharded._shard(packed[k][0], row)
+
+        q_slots = slots("a_s")
+        calls = []
+        real = sharded._refine_local_pallas
+
+        def spy(*args):
+            out = real(*args)
+            calls.append((args, out))
+            return out
+
+        sharded._refine_local_pallas = spy
+        try:
+            d, i, p, ovf = sharded.ring_nn_pruned(
+                q_slots, slots("b_s"), slots("b_perm"), slots("b_lo"),
+                slots("b_hi"), a.n, b.n,
+                payload=sharded._shard(pay_b, row), cap=caps[0])
+        finally:
+            sharded._refine_local_pallas = real
+        if any(bool(o) for o in ovf):
+            raise AssertionError(f"the {label} a->b ring overflowed at the "
+                                 "settled cap")
+        d, i, p = torch.cat(d)[:a.n], torch.cat(i)[:a.n], torch.cat(p)[:a.n]
+        if not (_bit_equal(d, want_d[:a.n]) and torch.equal(i,
+                                                            want_i[:a.n])):
+            raise AssertionError(f"the {label} a->b ring differs from "
+                                 "nn_pruned_sorted")
+        if not torch.equal(p, _payload_at(pay_b, packed["b_perm"][0], i)):
+            raise AssertionError(f"the {label} a->b ring's payload rows are "
+                                 "not b's at its ids")
+        per_call = ring_k1_calls(f"the {label} a->b ring", calls, q_slots,
+                                 a.n)
+        del calls
+        med = statistics.median(times)
+        print(f"ring path 800k {label} " + json.dumps({
+            "mesh": list(mesh.devices.shape), "pad": pad,
+            "n_points": n_total, "settled_cap": caps[0],
+            "k1_launches_a_call": (launches["refine_nn"] - warm) / RUNS,
+            "first_call_s": first_s, "times_s": times, "median_s": med,
+            "mpts_per_s": n_total / med / 1e6,
+            "max_rel_vs_pair_stats": worst,
+            "a->b_valid_rows_bit_identical": a.n,
+            "a->b_k1_vs_plain": per_call,
+            "launches": {k: v for k, v in launches.items() if v},
+            "card": smi}), flush=True)
+        out[f"ring path 800k {label}"] = launches["refine_nn"]
+    return out
+
+
+def ring_small_paths(s_origin, s_reconst, dev, smi):
+    """The brute ring (``sharded_pair_stats``, plain torch: the JAX package
+    runs XLA there) on the 60k pair with normals over RING_SLOTS slots of
+    cuda:0 against the fused path's stats (K5) within RING_RTOL; then
+    ``ring_normals_seed`` for the 60k origin and the 60k origins of the
+    other NORMALS_SEEDS."""
+    import torch
+
+    import bench
+    from open_pcc_metric_tpu_torch.ops.fused import pair_stats
+    from open_pcc_metric_tpu_torch.parallel.sharded import (
+        make_mesh, sharded_pair_stats)
+
+    pad = _ring_pad(s_origin, s_reconst)
+    a, b = _ring_cloud(s_origin, pad, dev), _ring_cloud(s_reconst, pad, dev)
+    mesh = make_mesh(devices=[dev] * RING_SLOTS)
+
+    def ring():
+        st = sharded_pair_stats(
+            mesh, a.points[None], b.points[None], [a.n], [b.n],
+            a_col=a.colors[None], b_col=b.colors[None],
+            a_nrm=a.normals[None], b_nrm=b.normals[None], **SWEEP_KW)
+        torch.cuda.synchronize()
+        return st
+
+    stats = ring()
+    times = []
+    for _ in range(RING_RUNS):
+        t0 = time.perf_counter()
+        stats = ring()
+        times.append(time.perf_counter() - t0)
+    single = pair_stats(a.points, b.points, a.n, b.n, a.colors, b.colors,
+                        a.normals, b.normals, backend="auto", **SWEEP_KW)
+    worst = _max_rel(stats, single)
+    if not worst <= RING_RTOL:
+        raise AssertionError(f"the brute ring's stats are off the fused "
+                             f"path's by {worst:.3e} relative")
+    med = statistics.median(times)
+    print("ring brute 60k " + json.dumps({
+        "mesh": list(mesh.devices.shape), "pad": pad,
+        "n_points": a.n + b.n, "times_s": times, "median_s": med,
+        "mpts_per_s": (a.n + b.n) / med / 1e6,
+        "max_rel_vs_fused": worst, "card": smi}), flush=True)
+
+    seeds = []
+    for seed in NORMALS_SEEDS:
+        arrays = (s_origin if seed == 0
+                  else bench.make_clouds(SMALL_POINTS, seed)[0])
+        seeds.append(ring_normals_seed(
+            arrays, _ring_pad(arrays), mesh, seed))
+    print("ring normals 60k " + json.dumps({
+        "slots": RING_SLOTS, "seeds": seeds, "dot_quantile": NORMALS_Q,
+        "bar": NORMALS_DOT, "tie_free_bar": TIE_FREE_DOT, "card": smi}),
+        flush=True)
+
+
+def ring_normals_seed(arrays, pad, mesh, seed):
+    """``ring_normals_pruned`` of one 60k origin without normals (its
+    ladder from cap 16) against the single-device estimate: the
+    NORMALS_Q-quantile of |dot| above NORMALS_DOT on every valid row. Then
+    the 30-NN sets behind them, held without regard to tie order against a
+    single-device 31-NN search (``ops.knn.knn``; every distance is exact on
+    these integer points): the ring's 30 distances a row equal the
+    search's, and on the rows whose 30th distance is below their 31st
+    (one 30-NN set, whatever the tie order) the ring's neighbour
+    coordinates are the search's as a set and its normal is the estimate's
+    within TIE_FREE_DOT in |dot|. Rows with a tie at the 30th may hold
+    different sets: the two searches break ties in different orders (the
+    ring's merge keeps the earlier candidate). Returns the seed's record."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.ops.grid import CHUNK
+    from open_pcc_metric_tpu_torch.ops.knn import knn
+    from open_pcc_metric_tpu_torch.parallel.sharded import (
+        _shard, ring_knn_coords_pruned, ring_normals_pruned)
+
+    c = _ring_cloud(arrays, pad, mesh.devices[0, 0], normals=False)
+    g = c.get_grid()
+    row = list(mesh.devices[0])
+    ncl = pad // (len(row) * CHUNK)
+    pts, lo, hi = (_shard(x, row) for x in (g.points, g.bbox_lo, g.bbox_hi))
+    cap = 16
+    t0 = time.perf_counter()
+    while True:
+        nrm, ovf = ring_normals_pruned(pts, lo, hi, c.n, k=K, cap=cap)
+        if cap >= ncl or not any(bool(o) for o in ovf):
+            break
+        cap = min(cap * 4, ncl)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    n = c.n
+    nrm = torch.cat(nrm)[:n]
+    est = c.get_normals()[g.perm.long()][:n]
+    dots = (nrm * est).sum(dim=1).abs().double()
+    q = float(torch.quantile(dots.cpu(), NORMALS_Q))
+    if not q > NORMALS_DOT:
+        raise AssertionError(f"ring normals (seed {seed}) |dot| "
+                             f"{NORMALS_Q}-quantile {q} <= {NORMALS_DOT}")
+    dk, ck, _ = ring_knn_coords_pruned(pts, pts, lo, hi, n, k=K, cap=cap)
+    dk, ck = torch.cat(dk)[:n], torch.cat(ck)[:n]
+    p = g.points[:n]
+    ref_i, ref_d = knn(p, p, k=K + 1)
+    if not _bit_equal(dk, ref_d[:, :K].contiguous()):
+        raise AssertionError(f"ring normals (seed {seed}): the ring's 30-NN "
+                             "distances differ from the single-device ones")
+    base = int(p.max()) + 1
+
+    def keys(x):
+        x = x.long()
+        return ((x[..., 0] * base + x[..., 1]) * base
+                + x[..., 2]).sort(dim=-1).values
+
+    tie_free = ref_d[:, K - 1] < ref_d[:, K]
+    same = (keys(ck) == keys(p[ref_i[:, :K].long()])).all(dim=1)
+    if not bool(same[tie_free].all()):
+        raise AssertionError(f"ring normals (seed {seed}): a tie-free row's "
+                             "30-NN set differs from the single-device one")
+    worst = float(dots[tie_free].min())
+    if not worst > TIE_FREE_DOT:
+        raise AssertionError(f"ring normals (seed {seed}): |dot| {worst} <= "
+                             f"{TIE_FREE_DOT} on a tie-free row")
+    return {"seed": seed, "n_points": n, "cap": cap, "ring_s": ring_s,
+            "abs_dot": q, "tie_free_rows": int(tie_free.sum()),
+            "tie_free_min_abs_dot": worst,
+            "tied_rows_same_set": int(same[~tie_free].sum()),
+            "tied_rows_abs_dot_min": (float(dots[~tie_free].min())
+                                      if bool((~tie_free).any()) else None)}
 
 
 def main() -> int:
@@ -3038,8 +3494,17 @@ def main() -> int:
     del a, b
     torch.cuda.empty_cache()
 
-    # The QP sweep: run_sweep over six degraded frames of one reference.
-    sweep_path(dev, smi)
+    # The QP sweep: run_sweep over six degraded frames of one reference,
+    # then run_sweep_sharded over the same files.
+    _, _, _, sharded_rec = sweep_path(dev, smi)
+    torch.cuda.empty_cache()
+
+    # The ring: the pruned ring on the 800k pair, then the brute ring and
+    # the ring normals on the 60k pair.
+    ring_launches = ring_path(origin, reconst, dev, smi)
+    ring_launches["sharded sweep 800k"] = sharded_rec["launches"]["refine_nn"]
+    torch.cuda.empty_cache()
+    ring_small_paths(s_origin, s_reconst, dev, smi)
     torch.cuda.empty_cache()
 
     for name in ("jax", "open_pcc_metric_tpu"):
@@ -3092,6 +3557,8 @@ def main() -> int:
             "library_ms": full.get("library_ms"),
             "phase": full["phase"],
         })
+        if name == "refine_nn":
+            kernels[-1]["ring_launches"] = ring_launches
         if kernels[-1]["launches"] <= 0 and name not in NO_PATH:
             raise AssertionError(f"{name} was launched on no path")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,8 +1,8 @@
 """Batch / sequence-sweep evaluation with a resumable JSONL journal.
 
-The counterpart of the JAX package's ``batch.py`` (its single-device
-sweep): a codec lab scores every decoded frame of every rate point against
-one reference, and the reference tool has no batch mode.
+The counterpart of the JAX package's ``batch.py``: a codec lab scores
+every decoded frame of every rate point against one reference, and the
+reference tool has no batch mode.
 
   * a manifest of (original, processed) pairs — explicit CSV or two
     directories paired by filename;
@@ -15,7 +15,10 @@ one reference, and the reference tool has no batch mode.
     reference once;
   * a 3-deep prefetch parses and uploads the next pairs' files on side
     threads (each with its own CUDA stream) while the device evaluates the
-    current pair.
+    current pair;
+  * ``run_sweep_sharded``: frame groups on a ("frames", "points") mesh of
+    devices through the ring (``parallel/sharded.py``), the JAX package's
+    multi-device sweep.
 
 The sweep runs on the CUDA device unless ``device`` names another.
 
@@ -35,6 +38,7 @@ import threading
 import time
 import typing
 
+import numpy as np
 import torch
 
 from .cloud import pad_bucket, resolve_device
@@ -300,6 +304,132 @@ def run_sweep(
     return results
 
 
+def run_sweep_sharded(
+    items: typing.Sequence[SweepItem],
+    journal_path: str,
+    mesh=None,
+    dp: typing.Optional[int] = None,
+    color_scheme: typing.Optional[str] = None,
+    point_to_plane: bool = False,
+    d2_mode: str = "reference",
+    dtype: str = "float32",
+    resume: bool = True,
+    prune: bool = True,
+    peak: typing.Optional[float] = None,
+) -> typing.List[dict]:
+    """Multi-device sweep: dp frames a step over a ("frames", "points")
+    mesh (``parallel.sharded``).
+
+    The frames of a group are padded to one common size; the ring evaluates
+    them with frame groups over the mesh rows and each cloud's points over a
+    row's slots. ``mesh`` None means every CUDA device (``make_mesh``, which
+    raises without one), in ``dp`` rows: by default 2 when the device count
+    is even and at least 4, else 1. ``prune`` (the default) runs the pruned
+    ring through ``sharded_pair_stats_pruned_auto``'s ladder: caps 16 and
+    64, as the JAX package tries, then on by 4x up to a slot's chunk count,
+    where no step can overflow, so every group ends exact; the rung that
+    settled is remembered per shape. The JAX package instead gives a group
+    still overflowing at cap 64 to the brute ring, whose plain search costs
+    minutes a group at 800k points; ``prune=False`` runs the brute ring.
+    Clouds are loaded onto slot (0, 0)'s device and the OBB peak is swept
+    there when it is a CUDA device, in numpy otherwise.
+    """
+    from .cloud import Cloud
+    from .io import read_point_cloud
+    from .ops.fused import _to_host, finalize_stats
+    from .ops.obb import minimal_obb_extent
+    from .parallel.sharded import (
+        make_mesh, pack_sorted_frames, sharded_pair_stats,
+        sharded_pair_stats_pruned_auto)
+
+    if mesh is None:
+        n_dev = torch.cuda.device_count()
+        dp = dp or (2 if n_dev % 2 == 0 and n_dev >= 4 else 1)
+        mesh = make_mesh(dp=dp)
+    dp, sp = mesh.devices.shape
+    device = mesh.devices[0, 0]
+    obb_device = device if device.type == "cuda" else False
+    torch_dtype = {"float32": torch.float32, "float64": torch.float64}[dtype]
+
+    done = _read_journal(journal_path) if resume else {}
+    todo = [it for it in items if it.tag not in done]
+    results = [done[it.tag] for it in items if it.tag in done]
+
+    with open(journal_path, "a") as journal:
+        for g in range(0, len(todo), dp):
+            group = todo[g:g + dp]
+            real = len(group)
+            while len(group) < dp:  # repeat the last frame to fill the group
+                group = group + [group[-1]]
+            raws = [(it, read_point_cloud(it.ocloud),
+                     read_point_cloud(it.pcloud)) for it in group]
+            pad = max(pad_bucket(max(ro.n, rp.n)) for _, ro, rp in raws)
+            pad = -(-pad // (sp * 256)) * (sp * 256)
+
+            t0 = time.perf_counter()
+
+            def load(raw):
+                return Cloud.from_numpy(raw.points, colors=raw.colors,
+                                        normals=raw.normals,
+                                        dtype=torch_dtype, pad_to=pad,
+                                        device=device)
+
+            a_list = [load(ro) for _, ro, _ in raws]
+            b_list = [load(rp) for _, _, rp in raws]
+            if prune:
+                # The bound-pruned ring over sorted shards refines only the
+                # qualifying Morton chunks; its ladder climbs from cap 16.
+                stats = _to_host(sharded_pair_stats_pruned_auto(
+                    mesh, pack_sorted_frames(
+                        a_list, b_list, color_scheme=color_scheme,
+                        point_to_plane=point_to_plane, d2_mode=d2_mode),
+                    color_scheme=color_scheme, point_to_plane=point_to_plane,
+                    d2_mode=d2_mode, cap=16))
+                stats.pop("nn_overflow")
+            else:
+                kw = {}
+                if color_scheme is not None:
+                    kw["a_col"] = torch.stack([c.colors for c in a_list])
+                    kw["b_col"] = torch.stack([c.colors for c in b_list])
+                if point_to_plane and all(
+                        c.normals is not None for c in a_list + b_list):
+                    kw["a_nrm"] = torch.stack([c.normals for c in a_list])
+                    kw["b_nrm"] = torch.stack([c.normals for c in b_list])
+                stats = _to_host(sharded_pair_stats(
+                    mesh,
+                    torch.stack([c.points for c in a_list]),
+                    torch.stack([c.points for c in b_list]),
+                    [c.n for c in a_list], [c.n for c in b_list],
+                    color_scheme=color_scheme,
+                    point_to_plane=point_to_plane, d2_mode=d2_mode, **kw))
+            wall = time.perf_counter() - t0
+
+            for f, (it, ro, _) in enumerate(raws[:real]):
+                extent_peak = (
+                    float(np.max(minimal_obb_extent(ro.points,
+                                                    device=obb_device)))
+                    if peak is None else float(peak))
+                metrics = finalize_stats(
+                    {k: v[f] for k, v in stats.items()}, extent_peak,
+                    color_scheme=color_scheme,
+                    point_to_plane=point_to_plane, peak=peak)
+                rec = {
+                    "tag": it.tag, "ocloud": it.ocloud, "pcloud": it.pcloud,
+                    "ts": time.time(),
+                    "metrics": {
+                        k: (v.tolist() if hasattr(v, "tolist") else float(v))
+                        for k, v in metrics.items()
+                    },
+                    "wall_s": round(wall, 4),
+                    "group_mpoints_per_sec": round(mpoints_per_sec(
+                        sum(c.n for c in a_list + b_list), wall), 4),
+                }
+                journal.write(json.dumps(rec) + "\n")
+                journal.flush()
+                results.append(rec)
+    return results
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m open_pcc_metric_tpu_torch.batch",
@@ -317,7 +447,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["float32", "float64"],
                    default="float32", help="(default: float32)")
     p.add_argument("--backend", choices=list(BACKENDS), default="auto",
-                   help="NN backend (default: auto).")
+                   help="NN backend (default: auto); the ring of --sharded "
+                        "has its own, so only auto goes with it.")
     p.add_argument("--peak", "--resolution", type=float, default=None,
                    help="User-supplied geometric-PSNR peak (pc_error's "
                         "--resolution convention).")
@@ -325,12 +456,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Re-evaluate frames already in the journal.")
     p.add_argument("--device", default="cuda",
                    help="Torch device to evaluate on (default: cuda).")
+    p.add_argument("--sharded", action="store_true",
+                   help="Evaluate frame groups on a (frames x points) mesh: "
+                        "with --device cuda every CUDA device, else --dp "
+                        "slots of --device, one a frame group.")
+    p.add_argument("--dp", type=int, default=None,
+                   help="Frame groups in sharded mode.")
     return p
 
 
 def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.sharded and args.backend != "auto":
+        parser.error("--backend does not apply to --sharded (the ring "
+                     "searches with its own pruned or brute ring)")
     try:
         device = torch.device(args.device)
     except RuntimeError as e:
@@ -344,12 +484,21 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         items = pairs_from_dirs(args.ocloud_dir, args.pcloud_dir)
     else:
         parser.error("provide --manifest or --ocloud-dir/--pcloud-dir")
-    results = run_sweep(
-        items, args.journal, color_scheme=args.color,
-        point_to_plane=args.point_to_plane, d2_mode=args.d2_mode,
-        dtype=args.dtype, backend=args.backend, resume=not args.no_resume,
-        peak=args.peak, device=device,
-    )
+    kw = dict(color_scheme=args.color, point_to_plane=args.point_to_plane,
+              d2_mode=args.d2_mode, dtype=args.dtype,
+              resume=not args.no_resume, peak=args.peak)
+    if args.sharded:
+        from .parallel.sharded import make_mesh
+
+        mesh = None
+        if device != torch.device("cuda"):
+            mesh = make_mesh(devices=[device] * (args.dp or 1),
+                             dp=args.dp or 1)
+        results = run_sweep_sharded(items, args.journal, mesh=mesh,
+                                    dp=args.dp, **kw)
+    else:
+        results = run_sweep(items, args.journal, backend=args.backend,
+                            device=device, **kw)
     ok = sum(1 for r in results if "error" not in r)
     print(f"{ok}/{len(results)} frames evaluated -> {args.journal}")
     return 0

@@ -1,7 +1,9 @@
 """PyTorch port: the library API called as the JAX package is called.
 
 The port's ``ops`` and ``utils`` export the JAX package's names (less
-``enable_compile_cache``, which has no counterpart in eager PyTorch);
+``enable_compile_cache``, which has no counterpart in eager PyTorch), and
+``parallel`` its seven ring names plus ``multihost``, each ring function
+with JAX's positional parameters less ``axis``;
 ``Cloud.from_numpy`` takes JAX's positional order (points, colors,
 normals, dtype, pad_to, thin) with ``device`` keyword-only; and
 ``minimal_obb_extent(device=True/False)`` has JAX's meaning: True runs the
@@ -64,6 +66,36 @@ def test_every_export_imports(sub):
         assert get_logger() is get_logger()
 
 
+def _positional(fn):
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+
+
+def test_parallel_all_matches_jax():
+    """``parallel`` exports the JAX package's seven ring names, plus its
+    ``multihost`` module (a submodule in the JAX package)."""
+    want = _exports("open_pcc_metric_tpu", "parallel") + ["multihost"]
+    assert sorted(_exports("open_pcc_metric_tpu_torch", "parallel")) == \
+        sorted(want)
+
+
+# The port's added parameters: a mesh's slots may name torch devices.
+PARALLEL_PORT_ONLY = {"make_mesh": ["devices"]}
+
+
+@pytest.mark.parametrize(
+    "name", importlib.import_module("open_pcc_metric_tpu.parallel").__all__)
+def test_parallel_positional_names_match_jax(name):
+    """Each exported ring function takes JAX's positional parameters in
+    JAX's order, less ``axis`` (the port's ring functions take one tensor
+    a slot, so the mesh axis is implicit)."""
+    port = importlib.import_module("open_pcc_metric_tpu_torch.parallel")
+    ref = importlib.import_module("open_pcc_metric_tpu.parallel")
+    want = [n for n in _positional(getattr(ref, name)) if n != "axis"]
+    assert _positional(getattr(port, name)) == want + PARALLEL_PORT_ONLY.get(
+        name, [])
+
+
 def _arrays(n=1500, seed=3):
     rng = np.random.default_rng(seed)
     return (rng.integers(0, 64, (n, 3)).astype(np.float64),
@@ -91,11 +123,7 @@ def test_from_numpy_positional_device_raises(device):
 
 def test_from_numpy_positional_names_match_jax():
     """The port's positional parameters are JAX's, in JAX's order."""
-    def positional(fn):
-        return [p.name for p in inspect.signature(fn).parameters.values()
-                if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
-
-    assert positional(Cloud.from_numpy) == positional(JCloud.from_numpy) == [
+    assert _positional(Cloud.from_numpy) == _positional(JCloud.from_numpy) == [
         "points", "colors", "normals", "dtype", "pad_to", "thin"]
     kw_only = [p.name for p in inspect.signature(
         Cloud.from_numpy).parameters.values() if p.kind == p.KEYWORD_ONLY]
