@@ -85,7 +85,17 @@ Hausdorff):
     is XLA) on the 60k pair against the fused path's stats;
     ``ring_normals_pruned`` on 60k origins of three seeds against the
     single-device estimate, and the 30-NN sets behind them against a
-    single-device search on the rows whose set no tie order changes.
+    single-device search on the rows whose set no tie order changes;
+  * the cold-pair fold: ``fused_evaluate`` on fresh 800k clouds without
+    normals through ``cold_pair_program`` and stepwise in COLD_PAIRS
+    alternating pairs, each call's wall split at its last readback and at
+    the end of its OBB thread, tables, normals and 30-NN sets equal, host
+    waits a call and the synchronising calls inside the fold counted
+    under ``torch.cuda.set_sync_debug_mode("warn")``; then the sweep's
+    shape (a cached reference, a fresh degraded cloud that estimates
+    alone);
+  * the bucketed 1-NN (``nn_pruned_bucketed_sorted``) a->b and b->a,
+    bit-identical to ``nn_pruned_sorted`` when it certifies.
 
 It prints:
 
@@ -128,8 +138,10 @@ It prints:
     launches a call, first call, median of RUNS after one warm-up,
     Mpts/s, the largest relative difference from ``pair_stats``), and the
     ``ring brute 60k`` and ``ring normals 60k`` lines,
+  * the ``cold fold 800k`` and ``bucketed 800k`` lines,
   * a ``{"kernels": [...]}`` JSON line (launches on the paths, K1's also
-    on the ring's, error and
+    on the ring's, K1's, K3's and K4's also on the fold's, K1's on the
+    bucketed search's runs, error and
     times against the plain version, the bound from this run's shapes and
     data, and for K5 and K2c one PyTorch library call's time), and last
   * ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -155,6 +167,7 @@ N_BIG = 2_000_000  # the 2M pair of the select-prologue A/B
 SMALL_POINTS = 60_000  # pads to 61440 rows: the largest brute-force pair
 RUNS = 5
 EST_RUNS = 3
+COLD_PAIRS = 10  # alternating fold / stepwise pairs on the cold fold line
 CAP, FALLBACK, P1 = 32, 256, 8  # the main path's base rung and probe width
 K, KCAP, KFT = 30, 64, 256  # the estimation's k and base rung
 PLAIN_BUDGET_S = 60.0  # a plain phase predicted slower runs on a subset
@@ -2853,7 +2866,9 @@ def ring_k1_calls(label, calls, q_slots, n_valid):
     query row (global row < ``n_valid``). Returns the line's fields: the
     calls, the gated ones whose table is partial (a tile with live slots
     below the table's width), the widest table, K1's device ms over the
-    calls (replayed, mean of 3) and the plain version's (once)."""
+    calls (replayed, mean of 3), the plain version's (once) and the sum of
+    the calls' bounds (``_skip_ops`` against each call's final d,
+    ``_refine_bytes``), with how many calls each side bounds."""
     import torch
 
     from open_pcc_metric_tpu_torch.ops import refine
@@ -2889,10 +2904,20 @@ def ring_k1_calls(label, calls, q_slots, n_valid):
             partial += int(bool(((ncand > 0)
                                  & (ncand < cand.shape[1])).any()))
         rows += int(valid.sum())
+    # Each call's bound: what its word skip cannot avoid against its rows'
+    # final d, and the bytes it reads and writes once; summed over calls.
+    bound_ms, bound_by = 0.0, {}
+    for (q, b, perm, _, cand, ncand, _, _), (d, i, _) in calls:
+        ms, by = _bound_of(
+            _skip_ops(q, b, cand, None, ncand, d),
+            _refine_bytes(q, b, perm, cand, None, ncand, None, (d, i)))
+        bound_ms += ms
+        bound_by[by] = bound_by.get(by, 0) + 1
     return {"k1_calls": len(calls), "partial_gated_calls": partial,
             "widest_table": max(c[0][4].shape[1] for c in calls),
             "valid_rows_compared": rows, "k1_ms": k1_ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by_calls": bound_by}
 
 
 def ring_path(origin, reconst, dev, smi):
@@ -3149,6 +3174,282 @@ def ring_normals_seed(arrays, pad, mesh, seed):
             "tied_rows_same_set": int(same[~tie_free].sum()),
             "tied_rows_abs_dot_min": (float(dots[~tie_free].min())
                                       if bool((~tie_free).any()) else None)}
+
+
+def _table_rel(got, want):
+    """The largest relative difference of table ``got`` from ``want``
+    (equal entries, infinities included, count 0)."""
+    worst = 0.0
+    for key, w in want.items():
+        g, w = np.asarray(got[key], np.float64), np.asarray(w, np.float64)
+        rel = np.where(g == w, 0.0,
+                       np.abs(g - w) / np.maximum(np.abs(w), 1e-30))
+        worst = max(worst, float(np.max(rel)))
+    return worst
+
+
+@contextlib.contextmanager
+def _sync_sites():
+    """torch's synchronising-call warnings (``set_sync_debug_mode("warn")``)
+    raised on this thread inside, as the list of their "file:line" sites
+    (each a host readback or another wait on the device). Warnings of other
+    threads (the OBB prefetch) are dropped."""
+    import threading
+    import traceback
+    import warnings
+
+    import torch
+
+    me = threading.get_ident()
+    root = os.getcwd()
+    sites = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if threading.get_ident() == me and "synchroniz" in str(message):
+                site = f"{os.path.relpath(filename)}:{lineno}"
+                if not os.path.abspath(filename).startswith(root):
+                    # a library frame: name the repo's line that called it
+                    ours = [f for f in traceback.extract_stack()[:-1]
+                            if f.filename.startswith(root)]
+                    if ours:
+                        site += (f" from {os.path.relpath(ours[-1].filename)}"
+                                 f":{ours[-1].lineno}")
+                sites.append(site)
+
+        # the mode first: switching it on may warn once itself
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = show
+        try:
+            yield sites
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+
+def cold_fold_path(origin, reconst, dev, smi):
+    """``fused_evaluate`` on fresh 800k clouds without normals through the
+    cold-pair fold and stepwise (``_cold_fold_applicable`` forced off) in
+    COLD_PAIRS alternating pairs of calls (fold first in even pairs,
+    stepwise first in odd ones): wall seconds and where each call's wall
+    went (``readback_s``: from the call's start to its last ``_to_host``,
+    the device work; ``obb_done_s``: to the end of the OBB thread, which
+    runs the hull beside it; ``after_readback_s``: from the last readback
+    to the table, the wait for the OBB and the finalize), host waits a
+    call (sync-debug warnings on the calling thread; the fold's is its one
+    readback), the warnings inside ``cold_pair_program`` with their sites,
+    and K1/K3/K4 launches a call.
+    Checks: tables equal to rtol 1e-6, estimated normals within atol 2e-6,
+    the 30-NN sets of both clouds bit-identical. Then the sweep's shape: the
+    last fold turn's reference, fully cached, against fresh degraded clouds
+    that estimate alone (est = (False, True)). Returns the launches of the
+    fold calls, the path's counted run."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.cloud import Cloud
+    from open_pcc_metric_tpu_torch.ops import fused, knn_pruned
+
+    def make(data):
+        c = Cloud.from_numpy(data[0], colors=data[1], device=dev)
+        torch.cuda.synchronize()
+        return c
+
+    real_app, real_prog = fused._cold_fold_applicable, fused.cold_pair_program
+    real_knn = knn_pruned.knn_pruned_sorted
+    real_to_host, real_obb = fused._to_host, Cloud.get_obb_extent
+    state = {"sites": None, "in_prog": [], "est": [], "knn": None,
+             "readback": None, "obb_done": None}
+
+    def to_host_spy(stats):
+        # a readback of device values (finalize_stats passes host ones)
+        out = real_to_host(stats)
+        if any(isinstance(v, torch.Tensor) for v in stats.values()):
+            state["readback"] = time.perf_counter()
+        return out
+
+    def obb_spy(cloud):
+        # on the prefetch thread; timed before its future resolves
+        out = real_obb(cloud)
+        state["obb_done"] = time.perf_counter()
+        return out
+
+    def prog_spy(*args, **kw):
+        n0 = len(state["sites"])
+        out = real_prog(*args, **kw)
+        state["in_prog"].append(state["sites"][n0:])
+        state["est"].append((kw["est_a"], kw["est_b"]))
+        return out
+
+    def knn_spy(*args, **kw):
+        out = real_knn(*args, **kw)
+        if state["knn"] is not None:
+            state["knn"].append(out[:2])
+        return out
+
+    modes = {m: {"wall_s": [], "readback_s": [], "obb_done_s": [],
+                 "after_readback_s": [], "waits": [], "sites": [],
+                 "launches": [], "tables": [], "normals": None, "knn": None}
+             for m in ("fold", "stepwise")}
+    order = tuple(m for i in range(COLD_PAIRS) for m in (
+        ("fold", "stepwise") if i % 2 == 0 else ("stepwise", "fold")))
+    fused.cold_pair_program = prog_spy
+    knn_pruned.knn_pruned_sorted = knn_spy
+    fused._to_host, Cloud.get_obb_extent = to_host_spy, obb_spy
+    restore = _guarded(_plain_names())
+    try:
+        for mode in order:
+            rec = modes[mode]
+            fused._cold_fold_applicable = (
+                real_app if mode == "fold" else lambda *a_, **k_: False)
+            a, b = make(origin), make(reconst)
+            first = rec["normals"] is None
+            state["knn"] = [] if first else None
+            n_prog = len(state["in_prog"])
+            state["readback"] = state["obb_done"] = None
+            _reset_launches()
+            with _sync_sites() as sites:
+                state["sites"] = sites
+                t0 = time.perf_counter()
+                table = fused.fused_evaluate(a, b, **SWEEP_KW)
+                t1 = time.perf_counter()
+            rec["wall_s"].append(t1 - t0)
+            rec["readback_s"].append(state["readback"] - t0)
+            rec["after_readback_s"].append(t1 - state["readback"])
+            rec["obb_done_s"].append(state["obb_done"] - t0)
+            rec["launches"].append({k: v for k, v in _launches().items()
+                                    if v})
+            rec["waits"].append(len(sites))
+            rec["sites"] += sites
+            rec["tables"].append(table)
+            took = len(state["in_prog"]) - n_prog
+            if took != (mode == "fold"):
+                raise AssertionError(f"a {mode} call ran the fold "
+                                     f"{took} times")
+            if first:
+                rec["normals"] = (a._est_normals, b._est_normals)
+                rec["knn"] = state["knn"]
+                state["knn"] = None
+        ref = (a, b)  # the last fold turn's clouds, every cache filled
+        shape = {"wall_s": [], "waits": [], "launches": []}
+        n_prog = len(state["in_prog"])
+        for _ in range(EST_RUNS):
+            b2 = make(reconst)
+            _reset_launches()
+            with _sync_sites() as sites:
+                state["sites"] = sites
+                t0 = time.perf_counter()
+                table = fused.fused_evaluate(ref[0], b2, **SWEEP_KW)
+                shape["wall_s"].append(time.perf_counter() - t0)
+            shape["waits"].append(len(sites))
+            shape["launches"].append({k: v for k, v in _launches().items()
+                                      if v})
+            worst = _table_rel(table, modes["stepwise"]["tables"][0])
+            if not worst <= 1e-6:
+                raise AssertionError(f"the sweep-shape fold's table is off "
+                                     f"the stepwise one by {worst:.3e}")
+        shape["est"] = state["est"][n_prog:]
+        if shape["est"] != [(False, True)] * EST_RUNS:
+            raise AssertionError(f"the sweep shape estimated {shape['est']}")
+    finally:
+        fused._cold_fold_applicable = real_app
+        fused.cold_pair_program = real_prog
+        knn_pruned.knn_pruned_sorted = real_knn
+        fused._to_host, Cloud.get_obb_extent = real_to_host, real_obb
+        restore()
+    fold, step = modes["fold"], modes["stepwise"]
+    worst = max(_table_rel(t, step["tables"][0])
+                for t in fold["tables"] + step["tables"])
+    if not worst <= 1e-6:
+        raise AssertionError(f"fold and stepwise tables differ by {worst:.3e}")
+    n_valid = (origin[0].shape[0], reconst[0].shape[0])
+    nrm_err = max(float((x[:n] - y[:n]).abs().max()) for x, y, n in zip(
+        fold["normals"], step["normals"], n_valid))
+    if not nrm_err <= 2e-6:
+        raise AssertionError(f"fold and stepwise normals differ by {nrm_err}")
+    if len(fold["knn"]) != 2 or len(step["knn"]) != 2:
+        raise AssertionError("one 30-NN a cloud was not captured")
+    for (fd, fi), (sd, si), n in zip(fold["knn"], step["knn"], n_valid):
+        if not (_bit_equal(fd[:n], sd[:n]) and _bit_equal(fi[:n], si[:n])):
+            raise AssertionError("fold and stepwise 30-NN sets differ")
+    in_prog = [s for sites in state["in_prog"] for s in sites]
+    line = {"turns": order, "runs_a_turn": 1}
+    for name, rec in modes.items():
+        line[name] = {
+            "wall_s": rec["wall_s"], "median_s": statistics.median(
+                rec["wall_s"]),
+            **{key: rec[key] for key in ("readback_s", "obb_done_s",
+                                         "after_readback_s")},
+            **{f"median_{key}": statistics.median(rec[key])
+               for key in ("readback_s", "obb_done_s", "after_readback_s")},
+            "host_waits_a_call": rec["waits"],
+            "wait_sites": sorted(set(rec["sites"])),
+            "launches_a_call": rec["launches"][0],
+        }
+    line["fold"]["sync_warnings_in_cold_pair_program"] = len(in_prog)
+    line["fold"]["sync_sites_in_cold_pair_program"] = sorted(set(in_prog))
+    line["sweep_shape"] = {
+        "est": shape["est"][0], "wall_s": shape["wall_s"],
+        "median_s": statistics.median(shape["wall_s"]),
+        "host_waits_a_call": shape["waits"],
+        "launches_a_call": shape["launches"][0]}
+    line["checks"] = {"table_max_rel": worst, "normals_max_abs": nrm_err,
+                      "knn_sets_bit_identical": True}
+    line["card"] = smi
+    print("cold fold 800k " + json.dumps(line), flush=True)
+    totals = {}
+    for launches in fold["launches"]:
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def bucketed_path(origin, reconst, dev, smi):
+    """``nn_pruned_bucketed_sorted`` a->b and b->a on the 800k pair at its
+    defaults (p1 8, b1_extra 40) and at p1 24, against ``nn_pruned_sorted``
+    at the main path's base rung: bit-identical on valid rows whenever the
+    overflow flag is clear, and certified at one of the two settings in
+    each direction. Prints the flag, K1 launches and ms (CUDA events, mean
+    of 5) of each. Returns the K1 launches of the checked calls."""
+    from open_pcc_metric_tpu_torch.cloud import Cloud
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import (
+        nn_pruned_bucketed_sorted, nn_pruned_sorted)
+
+    a = Cloud.from_numpy(origin[0], device=dev)
+    b = Cloud.from_numpy(reconst[0], device=dev)
+    ga, gb = a.get_grid(), b.get_grid()
+    recs, total = {}, 0
+    for label, gq, gs, nq in (("a->b", ga, gb, a.n), ("b->a", gb, ga, b.n)):
+        want = nn_pruned_sorted(gq, gs, nq, cap=CAP, fallback_tiles=FALLBACK)
+        if bool(want[2]):
+            raise AssertionError(f"the {label} default sweep overflowed")
+        default_ms = _time_ms(lambda: nn_pruned_sorted(
+            gq, gs, nq, cap=CAP, fallback_tiles=FALLBACK), 5)
+        certified = False
+        for p1 in (8, 24):
+            _reset_launches()
+            got = nn_pruned_bucketed_sorted(gq, gs, nq, p1=p1)
+            launches = _launches()["refine_nn"]
+            total += launches
+            overflow = bool(got[2])
+            if not overflow:
+                if not (_bit_equal(got[0][:nq], want[0][:nq])
+                        and _bit_equal(got[1][:nq], want[1][:nq])):
+                    raise AssertionError(f"the bucketed {label} sweep "
+                                         "differs from the default")
+                certified = True
+            recs[f"{label} p1 {p1}"] = {
+                "overflow": overflow, "k1_launches": launches,
+                "ms": _time_ms(lambda: nn_pruned_bucketed_sorted(
+                    gq, gs, nq, p1=p1), 5),
+                "default_ms": default_ms,
+                "bit_identical": None if overflow else True}
+        if not certified:
+            raise AssertionError(f"the bucketed {label} sweep certified at "
+                                 "neither setting")
+    print("bucketed 800k " + json.dumps({"sweeps": recs, "card": smi}),
+          flush=True)
+    return total
 
 
 def main() -> int:
@@ -3411,6 +3712,12 @@ def main() -> int:
     }), flush=True)
     del ea, eb
     torch.cuda.empty_cache()
+    # The cold-pair fold against stepwise and the bucketed 1-NN, each on
+    # the 800k pair.
+    fold_launches = cold_fold_path(origin, reconst, dev, smi)
+    torch.cuda.empty_cache()
+    bucketed_k1 = bucketed_path(origin, reconst, dev, smi)
+    torch.cuda.empty_cache()
     dag_big = dag_path(origin, reconst, dev, "refine_nn")
     torch.cuda.empty_cache()
 
@@ -3559,6 +3866,14 @@ def main() -> int:
         })
         if name == "refine_nn":
             kernels[-1]["ring_launches"] = ring_launches
+        if name in ("refine_nn", "refine_knn", "knn_moments"):
+            more = {"cold fold 800k": fold_launches.get(name, 0)}
+            if name == "refine_nn":
+                more["bucketed 800k"] = bucketed_k1
+            if min(more.values()) <= 0:
+                raise AssertionError(f"{name} was launched on no run of "
+                                     f"{more}")
+            kernels[-1]["more_launches"] = more
         if kernels[-1]["launches"] <= 0 and name not in NO_PATH:
             raise AssertionError(f"{name} was launched on no path")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -56,8 +56,10 @@ def transform_colors(
     the coefficients rounded to that dtype."""
     if source_scheme == target_scheme:
         return colors
+    # Host 0-d coefficients: a device op reads a CPU scalar without a copy
+    # to the device (and so without a wait on one).
     m = torch.as_tensor(color_matrix(source_scheme, target_scheme),
-                        dtype=colors.dtype, device=colors.device)
+                        dtype=colors.dtype)
     cols = []
     for r in range(3):
         acc = None

@@ -15,8 +15,9 @@ import torch
 
 def _div(x: torch.Tensor, y: float) -> torch.Tensor:
     """x / y as a true division (torch may turn a tensor-by-Python-scalar
-    division into a product with the reciprocal)."""
-    return x / torch.tensor(y, dtype=x.dtype, device=x.device)
+    division into a product with the reciprocal). The divisor is filled on
+    the device, so no host copy waits on it."""
+    return x / torch.full((), y, dtype=x.dtype, device=x.device)
 
 
 def smallest_eigenvector_components(a00, a11, a22, a01, a02, a12):

@@ -1,6 +1,6 @@
 """Fused pair evaluation: every reduction the metric table needs, one pass.
 
-Port of ``open_pcc_metric_tpu/ops/fused.py`` (its stepwise path): both NN
+Port of ``open_pcc_metric_tpu/ops/fused.py``: both NN
 directions and the intra-origin self-NN, then every sum the table needs —
 squared errors, running maxes (Hausdorff), per-channel colour errors on
 gathered neighbours — reduced on the clouds' device. Clouds at or above
@@ -11,9 +11,21 @@ K5) in original order. Only scalars and 3-vectors leave the device; the
 host then applies the OBB peak and log10s (``finalize_stats``).
 
 Under point-to-plane a cloud without normals gets them estimated
-(``Cloud.get_normals``: 30-NN PCA through the pruned k-NN with in-kernel
-moments, ``ops/normals.py``); the estimation caches the origin's boundary
-stats on the way, so the self-NN sweep is then skipped.
+(30-NN PCA through the pruned k-NN with in-kernel moments,
+``ops/normals.py``); the estimation caches the origin's boundary stats on
+the way, so the self-NN sweep is then skipped.
+
+``fused_evaluate`` takes one of two routes, where the JAX package takes
+them. The cold-pair fold (``cold_pair_program``) serves a pruned pair of
+clouds at or above the estimation's pruning threshold when, under
+point-to-plane, a cloud still needs its normals estimated, or when a
+cloud's grid or sorted colours are not built yet (``_cold_fold_applicable``):
+the first evaluation of every pair read from files, and every new
+degraded frame of a sweep. It builds the missing grids, estimates the
+missing normals at one rung for both clouds, runs the sweeps and reads
+back once; on any certificate overflow the call reruns stepwise. Every
+other pair runs stepwise: ``Cloud.get_normals`` and ``Cloud.get_grid``
+with their own ladders, then ``pair_stats`` and one readback an attempt.
 
 Knobs pick the pruned sweeps' schedules, read at each public call
 (``fused_evaluate``, ``pair_stats``, ``boundary_stats``), with the same
@@ -302,6 +314,8 @@ def pair_stats(
     gb=None,
     a_col_sorted: typing.Optional[torch.Tensor] = None,
     b_col_sorted: typing.Optional[torch.Tensor] = None,
+    a_nrm_sorted: typing.Optional[torch.Tensor] = None,
+    b_nrm_sorted: typing.Optional[torch.Tensor] = None,
     color_scheme: typing.Optional[str] = None,
     point_to_plane: bool = False,
     d2_mode: str = "reference",
@@ -309,11 +323,10 @@ def pair_stats(
     backend: str = "pruned",
     prune_cap: typing.Optional[int] = None,
     prune_fallback: typing.Optional[int] = None,
-    prologue: typing.Optional[str] = None,
-    a_nrm_sorted: typing.Optional[torch.Tensor] = None,
-    b_nrm_sorted: typing.Optional[torch.Tensor] = None,
-    refine_impl: typing.Optional[str] = None,
     mxu_ok: bool = False,
+    *,
+    prologue: typing.Optional[str] = None,
+    refine_impl: typing.Optional[str] = None,
     payload: typing.Optional[bool] = None,
     sched: typing.Optional[str] = None,
 ) -> typing.Dict[str, typing.Any]:
@@ -549,6 +562,214 @@ def _prefetch_obb(a, peak):
 _LADDER_MEMO: dict = {}
 
 
+def _sweep_memo_key(a, b, color_scheme, point_to_plane, d2_mode, backend,
+                    refine_impl, payload):
+    """The sweeps' ladder-memo key, one for the fold and the stepwise path
+    so both share rungs. The schedule is part of it: a rung that certified
+    under one must not seed another's first call."""
+    return (a.padded_size, b.padded_size, str(a.points.dtype), color_scheme,
+            point_to_plane, d2_mode, backend, refine_impl, payload)
+
+
+def _finish(host, a, obb_future, peak, color_scheme, point_to_plane):
+    """The table from the host stats: the OBB peak (a user ``peak``, as
+    pc_error's --resolution, skips the OBB entirely), then
+    ``finalize_stats``."""
+    if peak is not None:
+        extent_peak = float(peak)
+    elif obb_future is not None:
+        extent_peak = float(np.max(obb_future.result()))
+    else:
+        extent_peak = float(np.max(a.get_obb_extent()))
+    return finalize_stats(host, extent_peak, color_scheme=color_scheme,
+                          point_to_plane=point_to_plane, peak=peak)
+
+
+def cold_pair_program(
+    a_pts, b_pts, n_a, n_b, a_col=None, b_col=None, ga=None, gb=None,
+    a_nrm=None, a_nrm_s=None, b_nrm=None, b_nrm_s=None,
+    a_col_s=None, b_col_s=None, boundary_a=None,
+    color_scheme=None, point_to_plane=True, d2_mode="reference",
+    est_a=True, est_b=True, k=30, knn_cap=64, knn_ft=256,
+    prune_cap=32, prune_fallback=256, mxu_ok=False, knn_flags=None,
+    *,
+    prologue: typing.Optional[str] = None,
+    refine_impl: typing.Optional[str] = None,
+    payload: typing.Optional[bool] = None,
+    sched: typing.Optional[str] = None,
+):
+    """The cold-pair fold: everything a pair with (partly) cold per-cloud
+    state needs, in one run of device work with no host readback.
+
+    Builds the grids not given (``build_grid``, on the device), estimates
+    the normals of each cloud that ``est_a`` / ``est_b`` asks for
+    (``normals.estimation_core`` at rung (``knn_cap``, ``knn_ft``) with
+    ``knn_flags``, which also gives the boundary stats), gathers the sorted
+    colours not given, then runs the pruned sweeps and reductions
+    (``_pair_stats_pruned``), with the self sweep only when no
+    ``boundary_a`` is known. Every certificate's overflow is ORed on the
+    device into ``stats["nn_overflow"]``.
+
+    Returns ``(stats, cacheables)``, the latter the per-cloud state for the
+    caller to cache. ``prologue``, ``refine_impl``, ``payload`` and
+    ``sched`` are the sweeps' (``pair_stats``), read at this call when None.
+    """
+    from .grid import build_grid
+    from .normals import estimation_core
+
+    if ga is None:
+        ga = build_grid(a_pts, n_a)
+    if gb is None:
+        gb = build_grid(b_pts, n_b)
+    est_overflows = []
+    boundary_b = None
+    if est_a:
+        a_nrm, a_nrm_s, mn_a, mx_a, ov_a = estimation_core(
+            ga, n_a, k, knn_cap, knn_ft, knn_flags)
+        boundary_a = (mn_a, mx_a)
+        est_overflows.append(ov_a)
+    if est_b:
+        b_nrm, b_nrm_s, mn_b, mx_b, ov_b = estimation_core(
+            gb, n_b, k, knn_cap, knn_ft, knn_flags)
+        boundary_b = (mn_b, mx_b)
+        est_overflows.append(ov_b)
+    if color_scheme is not None:  # geometry-only pairs never read colours
+        a_col_s = _sorted_rows(a_col, ga.perm, a_col_s)
+        b_col_s = _sorted_rows(b_col, gb.perm, b_col_s)
+    stats = _pair_stats_pruned(
+        a_pts, b_pts, n_a, n_b, a_col, b_col, a_nrm, b_nrm, ga, gb,
+        a_col_s, b_col_s, a_nrm_s, b_nrm_s,
+        color_scheme=color_scheme, point_to_plane=point_to_plane,
+        d2_mode=d2_mode, with_boundary=boundary_a is None,
+        prune_cap=prune_cap, prune_fallback=prune_fallback,
+        prologue=resolve_prologue(prologue, NN_PROLOGUE_ENV),
+        refine_impl=resolve_refine_impl(refine_impl), mxu_ok=mxu_ok,
+        payload=resolve_payload(payload), sched=resolve_nn_sched(sched))
+    if boundary_a is not None:
+        stats["self_min"], stats["self_max"] = boundary_a
+    for ov in est_overflows:
+        stats["nn_overflow"] = stats["nn_overflow"] | ov
+    cacheables = {
+        "ga": ga, "gb": gb, "nrm_a": a_nrm, "nrm_b": b_nrm,
+        "nrm_a_s": a_nrm_s, "nrm_b_s": b_nrm_s,
+        "a_col_s": a_col_s, "b_col_s": b_col_s,
+        "boundary_a": (stats["self_min"], stats["self_max"]),
+        "boundary_b": boundary_b,
+    }
+    return stats, cacheables
+
+
+def _needs_est(c) -> bool:
+    return c.normals is None and c._est_normals is None
+
+
+def _cold_device_state(a, b, color_scheme) -> bool:
+    """Whether either cloud still lacks a grid, or sorted colours that the
+    sweeps will read."""
+    for c in (a, b):
+        if c._grid is None:
+            return True
+        if (color_scheme is not None and c.colors is not None
+                and c._sorted_colors is None):
+            return True
+    return False
+
+
+def _cold_fold_applicable(a, b, color_scheme, point_to_plane, backend) -> bool:
+    """The JAX package's rule for the fold: pruned pairs of clouds at or
+    above the estimation's pruning threshold and of one dtype, in which a
+    cloud needs normal estimation (and both hold at least k points), or a
+    cloud's grid or sorted colours are not built yet (and the origin holds
+    two points). Warm pairs and every other case stay stepwise."""
+    from .normals import DEFAULT_KNN, _PRUNE_THRESHOLD
+
+    if (backend != "pruned"
+            or min(a.padded_size, b.padded_size) < _PRUNE_THRESHOLD
+            or a.points.dtype != b.points.dtype):
+        return False
+    if point_to_plane and (_needs_est(a) or _needs_est(b)):
+        return min(int(a.n), int(b.n)) >= max(DEFAULT_KNN, 2)
+    return _cold_device_state(a, b, color_scheme) and int(a.n) >= 2
+
+
+def _fused_evaluate_cold(a, b, color_scheme, point_to_plane, d2_mode, peak,
+                         *, prune_cap, prune_fallback, prologue, refine_impl,
+                         payload, sched):
+    """``fused_evaluate`` through the fold: ``cold_pair_program`` and one
+    readback (``_to_host``), with the OBB on a thread beside it. Returns
+    None when a certificate overflowed (the caller reruns stepwise, with
+    its ladders), after the OBB thread has finished.
+
+    The rung rules are the JAX package's: the sweeps' rung from the fused
+    ladder memo (the stepwise path's key, so both share rungs); both
+    estimations at max(rung_a, rung_b) of the estimation memo, the rung
+    stored only under the shape that demanded it; nothing stored on
+    overflow. On success each cloud caches what the stepwise path would:
+    grid, estimated and sorted normals, sorted colours, boundary stats.
+    """
+    from .knn_pruned import knn_flags_from_env
+    from .normals import DEFAULT_KNN, knn_base_rung
+    from .normals import _LADDER_MEMO as _EST_MEMO
+
+    obb_future = _prefetch_obb(a, peak)
+    mxu_ok = refine_impl != "default" and _mxu_ok(a, b)
+    memo_key = _sweep_memo_key(a, b, color_scheme, point_to_plane, d2_mode,
+                               "pruned", refine_impl, payload)
+    cap, fallback = ladder_lookup(_LADDER_MEMO, memo_key,
+                                  (prune_cap, prune_fallback))
+
+    def nrm_state(c):
+        # Only CACHED sorted normals are passed in: the sweeps read them on
+        # the payload schedule alone.
+        if c.normals is not None:
+            return c.normals, c._sorted_normals, False
+        if c._est_normals is not None:
+            return c._est_normals, c._sorted_normals, False
+        return None, None, point_to_plane
+
+    a_nrm, a_nrm_s, est_a = nrm_state(a)
+    b_nrm, b_nrm_s, est_b = nrm_state(b)
+    kcap = kft = kflags = None
+    if est_a or est_b:
+        kflags = knn_flags_from_env()
+        base = knn_base_rung()
+        rung_a = ladder_lookup(_EST_MEMO, (a.padded_size, DEFAULT_KNN), base)
+        rung_b = ladder_lookup(_EST_MEMO, (b.padded_size, DEFAULT_KNN), base)
+        kcap, kft = max(rung_a[0], rung_b[0]), max(rung_a[1], rung_b[1])
+    stats, cache = cold_pair_program(
+        a.points, b.points, a.n, b.n, a.colors, b.colors, a._grid, b._grid,
+        a_nrm, a_nrm_s, b_nrm, b_nrm_s, a._sorted_colors, b._sorted_colors,
+        a._boundary_stats, color_scheme=color_scheme,
+        point_to_plane=point_to_plane, d2_mode=d2_mode, est_a=est_a,
+        est_b=est_b, k=DEFAULT_KNN, knn_cap=kcap or 64, knn_ft=kft or 256,
+        prune_cap=cap, prune_fallback=fallback, mxu_ok=mxu_ok,
+        knn_flags=kflags, prologue=prologue, refine_impl=refine_impl,
+        payload=payload, sched=sched)
+    host = _to_host(stats)  # the one round trip: results and overflow
+    if bool(host["nn_overflow"]):
+        if obb_future is not None:
+            obb_future.result()  # let it finish caching before stepwise
+        return None
+    ladder_store(_LADDER_MEMO, memo_key, (cap, fallback))
+    if est_a and rung_a == (kcap, kft):
+        ladder_store(_EST_MEMO, (a.padded_size, DEFAULT_KNN), (kcap, kft))
+    if est_b and rung_b == (kcap, kft):
+        ladder_store(_EST_MEMO, (b.padded_size, DEFAULT_KNN), (kcap, kft))
+    a._grid, b._grid = cache["ga"], cache["gb"]
+    if est_a:
+        a._est_normals, a._sorted_normals = cache["nrm_a"], cache["nrm_a_s"]
+    if est_b:
+        b._est_normals, b._sorted_normals = cache["nrm_b"], cache["nrm_b_s"]
+    if cache["a_col_s"] is not None:
+        a._sorted_colors = cache["a_col_s"]
+    if cache["b_col_s"] is not None:
+        b._sorted_colors = cache["b_col_s"]
+    a._boundary_stats = cache["boundary_a"]
+    if cache["boundary_b"] is not None and b._boundary_stats is None:
+        b._boundary_stats = cache["boundary_b"]
+    return _finish(host, a, obb_future, peak, color_scheme, point_to_plane)
+
+
 def fused_evaluate(
     a, b, color_scheme=None, point_to_plane=False, d2_mode="reference",
     backend: str = "auto", peak: typing.Optional[float] = None,
@@ -587,6 +808,16 @@ def fused_evaluate(
             "reference D2 mode requires n_origin <= n_reconst "
             f"(got {a.n} > {b.n}); use d2_mode='pc_error'"
         )
+    if _cold_fold_applicable(a, b, color_scheme, point_to_plane, backend):
+        out = _fused_evaluate_cold(
+            a, b, color_scheme, point_to_plane, d2_mode, peak,
+            prune_cap=prune_cap, prune_fallback=prune_fallback,
+            prologue=prologue, refine_impl=refine_impl, payload=payload,
+            sched=sched)
+        if out is not None:
+            return out
+        # A certificate overflowed in the fold: the stepwise path below
+        # reruns with its per-stage ladders.
     obb_future = _prefetch_obb(a, peak)
     a_nrm, b_nrm = a.normals, b.normals
     if point_to_plane:
@@ -619,11 +850,10 @@ def fused_evaluate(
     def run(cap=None, fallback=None):
         stats = pair_stats(
             a.points, b.points, a.n, b.n, a.colors, b.colors,
-            a_nrm, b_nrm, ga, gb, a_col_sorted, b_col_sorted,
-            backend=backend, prune_cap=cap, prune_fallback=fallback,
-            prologue=prologue, a_nrm_sorted=a_nrm_sorted,
-            b_nrm_sorted=b_nrm_sorted, refine_impl=refine_impl,
-            mxu_ok=mxu_ok, payload=payload, sched=sched, **kwargs)
+            a_nrm, b_nrm, ga, gb, a_col_sorted, b_col_sorted, a_nrm_sorted,
+            b_nrm_sorted, backend=backend, prune_cap=cap,
+            prune_fallback=fallback, mxu_ok=mxu_ok, prologue=prologue,
+            refine_impl=refine_impl, payload=payload, sched=sched, **kwargs)
         if not with_boundary:
             stats["self_min"], stats["self_max"] = a._boundary_stats
         host = _to_host(stats)  # one round-trip: results + overflow
@@ -632,11 +862,8 @@ def fused_evaluate(
     if backend == "brute":
         (stats, host), _ = run()
     else:
-        # The schedule is part of the key: a rung that certified under one
-        # must not seed another's first call.
-        memo_key = (a.padded_size, b.padded_size, str(a.points.dtype),
-                    color_scheme, point_to_plane, d2_mode, backend,
-                    refine_impl, payload)
+        memo_key = _sweep_memo_key(a, b, color_scheme, point_to_plane,
+                                   d2_mode, backend, refine_impl, payload)
         cap, fallback = ladder_lookup(_LADDER_MEMO, memo_key,
                                       (prune_cap, prune_fallback))
         (stats, host), rung = _ladder(
@@ -644,14 +871,4 @@ def fused_evaluate(
         ladder_store(_LADDER_MEMO, memo_key, rung)
     if with_boundary:
         a._boundary_stats = (stats["self_min"], stats["self_max"])
-    # User peak (pc_error --resolution) skips the OBB entirely.
-    if peak is not None:
-        extent_peak = float(peak)
-    elif obb_future is not None:
-        extent_peak = float(np.max(obb_future.result()))
-    else:
-        extent_peak = float(np.max(a.get_obb_extent()))
-    return finalize_stats(
-        host, extent_peak, color_scheme=color_scheme,
-        point_to_plane=point_to_plane, peak=peak
-    )
+    return _finish(host, a, obb_future, peak, color_scheme, point_to_plane)

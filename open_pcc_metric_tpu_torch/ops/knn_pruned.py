@@ -1,13 +1,11 @@
 """Bound-pruned exact k-NN over Morton chunk grids (normal estimation at scale).
 
-Port of the default count-gated schedule of
-``open_pcc_metric_tpu/ops/knn_pruned.py`` (``KnnFlags()``: sched "counted",
-p1 = 8, one slot per step, no sorted-slice or two-level extension). The
-structure is ``nn_pruned``'s with a k-best selection: each 256-query tile
-refines a prefix of its lowest-lower-bound chunks, then certifies itself
-with ub = max over its valid queries of the k-th refined distance; tiles
-that fail are re-refined in two wider tiers, and only if those fail too
-does the call report ``overflow``.
+Port of ``open_pcc_metric_tpu/ops/knn_pruned.py``. The structure is
+``nn_pruned``'s with a k-best selection: each 256-query tile refines a
+prefix of its lowest-lower-bound chunks, then certifies itself with ub =
+max over its valid queries of the k-th refined distance; tiles that fail
+are re-refined in two wider tiers, and only if those fail too does the
+call report ``overflow``.
 
 Every refine goes through ``refine.refine_knn`` (K3), whose merge keeps the
 lexicographic (distance, original index) k-best whatever the visit order,
@@ -43,24 +41,101 @@ tiles have already refined: K3 merges a seed with chunks it has not seen
 (the TPU kernel's merge also absorbs a re-visit; the port's register
 insertion would keep a second copy).
 
-The JAX package's need-sorted slices (``_ext_sorted_slices``,
-``_mom_sorted_slices``) and two-level extension (``_ext_two_level``) are
-TPU scheduling devices with the same results; the port runs the plain
-rectangular, count-gated form.
+The schedule knobs are the JAX package's ``KnnFlags``, resolved at each
+call (``knn_flags_from_env``: ``PCC_KNN_SCHED``, ``PCC_KNN_P1`` and
+``PCC_KNN_PROLOGUE``, which pick a schedule here, and ``PCC_KNN_CS``,
+``PCC_KNN_EXT_SLICE``, ``PCC_KNN_EXT_SORTED``, ``PCC_KNN_MOM_SORTED``,
+``PCC_KNN_EXT_E1`` and ``PCC_KNN_EXT_FTE``, parsed as the JAX package
+parses them). The last six choose the JAX package's need-sorted slices
+(``_ext_sorted_slices``, ``_mom_sorted_slices``) and two-level extension
+(``_ext_two_level``): relayouts of the TPU grid, whose results are the
+rectangular launch's bit for bit. K3 and K4 read every tile through
+global tile ids and their gates skip dead slots, which is what the slices
+buy on the TPU, so the port always runs the one rectangular, count-gated
+extension and moments launch; on the H100 every sliced or two-level form
+measured slower than it (PERF.md). The flags are carried so that a caller
+may pass the JAX package's ``KnnFlags``.
+
+``refine_impl`` names the JAX package's two routes. "auto", "pallas" and
+"pallas_interpret" take its kernel route, the counted schedule where its
+conditions hold. "xla" takes its plain route's schedule: stage 1 refines
+every tile's ``cap`` candidates at once (the fixed schedule's K2c and
+K3b), the tiers follow, and K4 sums the moments, as on the kernel route.
+Either way each kernel runs on CUDA tensors and its plain version on CPU
+tensors.
 """
 from __future__ import annotations
 
+import os
 import typing
 
 import torch
 
 from .grid import CHUNK, ChunkGrid, build_grid
 from .nn_pruned import (
-    KNN_P1_ENV, KNN_PROLOGUE_ENV, cert_ub, count_under, resolve_knn_sched,
-    resolve_p1, resolve_prologue, run_prologue, stable_top, tier_table,
-    unsort_rows, uses_select)
+    KNN_P1_ENV, KNN_PROLOGUE_ENV, KNN_SCHED_ENV, cert_ub, count_under,
+    resolve_knn_sched, resolve_prologue, run_prologue, stable_top,
+    tier_table, unsort_rows, uses_select)
 from .refine import MOM_CH, knn_moments, refine_knn, refine_knn_straight
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
+
+# refine_impl values: the JAX package's kernel route, then its plain route.
+KERNEL_ROUTE = ("auto", "pallas", "pallas_interpret")
+REFINE_IMPLS = KERNEL_ROUTE + ("xla",)
+
+
+class KnnFlags(typing.NamedTuple):
+    """The k-NN schedule knobs, the JAX package's nine fields in its order
+    and with its defaults. ``sched``, ``p1`` and ``prologue`` pick the
+    schedule; the other six are the TPU grid's relayouts and change no
+    launch here (module docstring)."""
+
+    sched: str = "counted"
+    p1: int = 8
+    ext_cs: int = 1
+    ext_slice: int = 512
+    ext_sorted: bool = False
+    mom_sorted: bool = True
+    ext_e1: int = 0
+    ext_fte: int = 0
+    prologue: str = "xla"
+
+
+def knn_flags_from_env() -> KnnFlags:
+    """The ``PCC_KNN_*`` knobs read NOW, parsed as the JAX package parses
+    them: ``ext_slice`` = max(8, v // 8 * 8), ``mom_sorted`` on unless
+    ``PCC_KNN_MOM_SORTED`` is set to anything but "1"."""
+    env = os.environ.get
+    return KnnFlags(
+        sched=env(KNN_SCHED_ENV, "counted"),
+        p1=int(env(KNN_P1_ENV, "8")),
+        ext_cs=int(env("PCC_KNN_CS", "1")),
+        ext_slice=max(8, int(env("PCC_KNN_EXT_SLICE", "512")) // 8 * 8),
+        ext_sorted=env("PCC_KNN_EXT_SORTED", "0") == "1",
+        mom_sorted=env("PCC_KNN_MOM_SORTED", "1") == "1",
+        ext_e1=int(env("PCC_KNN_EXT_E1", "0")),
+        ext_fte=int(env("PCC_KNN_EXT_FTE", "0")),
+        prologue=env(KNN_PROLOGUE_ENV, "xla"),
+    )
+
+
+def resolve_knn_flags(flags: typing.Optional[KnnFlags] = None, *,
+                      p1: typing.Optional[int] = None,
+                      prologue: typing.Optional[str] = None,
+                      sched: typing.Optional[str] = None) -> KnnFlags:
+    """``flags`` (``knn_flags_from_env()`` when None) with each of ``p1``,
+    ``prologue`` and ``sched`` that is given in place of its field (the
+    last two checked, as ``resolve_prologue`` and ``resolve_knn_sched``
+    check them)."""
+    flags = knn_flags_from_env() if flags is None else flags
+    over = {}
+    if p1 is not None:
+        over["p1"] = int(p1)
+    if prologue is not None:
+        over["prologue"] = resolve_prologue(prologue, KNN_PROLOGUE_ENV)
+    if sched is not None:
+        over["sched"] = resolve_knn_sched(sched)
+    return flags._replace(**over) if over else flags
 
 
 def _mark(seen, cand, live):
@@ -107,10 +182,13 @@ def knn_pruned_sorted(
     exclude_self: bool = False,
     cap: int = 32,
     fallback_tiles: int = 128,
+    refine_impl: str = "auto",
     with_moments: bool = False,
+    flags: typing.Optional[KnnFlags] = None,
+    *,
     p1: typing.Optional[int] = None,
-    prologue: str = "xla",
-    sched: str = "counted",
+    prologue: typing.Optional[str] = None,
+    sched: typing.Optional[str] = None,
 ) -> typing.Tuple[torch.Tensor, ...]:
     """k-NN in Morton-sorted query order; ORIGINAL neighbour indices.
 
@@ -121,30 +199,39 @@ def knn_pruned_sorted(
     syz] of the offsets from each query to its k neighbours (K4's, or with
     ``exclude_self`` ``gather_moments``).
 
-    Schedule (``sched="counted"``, cap > 8 and nta % 8 == 0): a probe of
-    the ``p1`` lowest-lb chunks of every tile (``PCC_KNN_P1`` read at this
-    call when ``p1`` is None, else 8), a certificate count from the k-th
-    distance, an in-place extension of each tile to min(count, cap) chunks
+    ``flags`` (``knn_flags_from_env()`` read at this call when None) picks
+    the schedule; ``p1``, ``prologue`` and ``sched``, when given, replace
+    their fields. Kernel route (``refine_impl`` "auto", "pallas" or
+    "pallas_interpret"), counted schedule (cap > 8, nta % 8 == 0): a probe
+    of the ``p1`` lowest-lb chunks of every tile, a certificate count from
+    the k-th distance, an extension of each tile to min(count, cap) chunks
     seeded from the probe (gated per tile), then tier A (the top
     ``fallback_tiles`` tiles by count, widened to cap2a = min(max(2 cap,
     128), ncb)) and tier B (the worst of those, widened to cap2b =
     min(max(8 cap, 512, ncb // 4), ncb)), both seeded, gated and read in
-    place through global tile ids. Otherwise stage 1 is K2c's ``cap``
-    candidates and one K3b refine of all of them. The moments pass walks
-    the same prefixes: min(count, cap) chunks of every tile, then each
-    tier's extension (from zero over the tier's prefix in select mode),
-    with the count taken from the final k-th distances. ``prologue``
-    ("xla" or "select") as in the module docstring.
+    place through global tile ids. Otherwise (the fixed schedule, and the
+    plain route "xla") stage 1 is K2c's ``cap`` candidates and one K3b
+    refine of all of them. The moments pass walks the same prefixes:
+    min(count, cap) chunks of every tile, then each tier's extension (from
+    zero over the tier's prefix in select mode), with the count taken from
+    the final k-th distances. The prologue ("xla" or "select") as in the
+    module docstring.
     """
+    if refine_impl not in REFINE_IMPLS:
+        raise ValueError(f"unknown refine_impl {refine_impl!r}; one of "
+                         f"{REFINE_IMPLS}")
+    flags = resolve_knn_flags(flags, p1=p1, prologue=prologue, sched=sched)
     n_a = int(n_a)
     nta = ga.points.shape[0] // CHUNK
     ncb = gb.n_chunks
     cap = min(cap, ncb)
-    sched = resolve_knn_sched(sched)
-    counted = sched == "counted" and cap > 8 and nta % 8 == 0
+    sched = "counted" if flags.sched == "counted" else "fixed"
+    counted = (refine_impl in KERNEL_ROUTE and sched == "counted" and cap > 8
+               and nta % 8 == 0)
+    prologue = "select" if flags.prologue == "select" else "xla"
     pro = run_prologue(ga, gb, n_a, cap,
-                       uses_select(prologue, cap, ga.points.dtype, sched)
-                       and nta % 8 == 0, fixed=not counted)
+                       counted and uses_select(prologue, cap, ga.points.dtype),
+                       fixed=not counted)
     valid_t, order = pro.valid_t, pro.order
 
     def refine(cand, **kw):
@@ -155,7 +242,7 @@ def knn_pruned_sorted(
         return cert_ub(dk[:, :, k - 1], tvalid)
 
     if counted:
-        p1 = max(1, min(resolve_p1(p1, KNN_P1_ENV), cap - 1))
+        p1 = max(1, min(flags.p1, cap - 1))
         d1, i1 = refine(order[:, :p1])
         counts1 = pro.counts(kth_ub(d1, valid_t))
         ncand2 = torch.clamp(counts1 - p1, 0, cap - p1).to(torch.int32)
@@ -300,11 +387,10 @@ def knn_pruned(
     """Exact pruned k-NN in ORIGINAL order with automatic escalation.
 
     Returns ``(idx int32 (Pa, k), dist_sq (Pa, k))`` ascending by distance.
-    ``prologue`` and ``sched`` default to ``PCC_KNN_PROLOGUE`` and
-    ``PCC_KNN_SCHED``, read at this call.
+    The schedule flags are ``knn_flags_from_env()``, read at this call,
+    with ``prologue`` and ``sched`` in place of theirs when given.
     """
-    prologue = resolve_prologue(prologue, KNN_PROLOGUE_ENV)
-    sched = resolve_knn_sched(sched)
+    flags = resolve_knn_flags(prologue=prologue, sched=sched)
     nta = a_points.shape[0] // CHUNK
     ncb = b_points.shape[0] // CHUNK
     # The JAX package's key: both schedules overflow on the same rungs.
@@ -317,7 +403,7 @@ def knn_pruned(
     while True:
         dk, ik, overflow = knn_pruned_sorted(
             ga, gb, n_a, k, exclude_self=exclude_self, cap=cap,
-            fallback_tiles=fallback_tiles, prologue=prologue, sched=sched)
+            fallback_tiles=fallback_tiles, flags=flags)
         # Exact iff the certificate passed or stage 1 refined every chunk.
         if not bool(overflow) or cap >= ncb:
             ladder_store(_ESCALATION_MEMO, key, (cap, fallback_tiles))

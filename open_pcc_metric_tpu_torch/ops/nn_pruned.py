@@ -65,6 +65,9 @@ on valid rows:
   * ``nn_pruned_sorted_payload``: stage 1 through K6, which also returns
     the winner's payload row, and one tier refined from scratch through K1
     (the fused evaluation's ``PCC_PAYLOAD_KERNEL=1``).
+  * ``nn_pruned_bucketed_sorted`` (cross searches only; no caller in either
+    package but tests): a probe, one seeded pass of the tiles that need
+    more, then its own two tiers, every pass through K1.
 """
 from __future__ import annotations
 
@@ -272,10 +275,11 @@ def nn_pruned_sorted(
     exclude_self: bool = False,
     cap: int = 32,
     fallback_tiles: int = 128,
-    p1: typing.Optional[int] = None,
-    prologue: str = "xla",
     refine_impl: str = "default",
     mxu_ok: bool = False,
+    *,
+    p1: typing.Optional[int] = None,
+    prologue: str = "xla",
     sched: str = "counted",
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """1-NN in Morton-sorted query order.
@@ -516,6 +520,98 @@ def nn_pruned_sorted_payload(
             0, otiles, fpay).reshape(nta * CHUNK, PAYLOAD_F)
     return (dmin.reshape(nta * CHUNK), gidx.reshape(nta * CHUNK), pay,
             overflow)
+
+
+def nn_pruned_bucketed_sorted(
+    ga: ChunkGrid,
+    gb: ChunkGrid,
+    n_a: int,
+    p1: int = 8,
+    b1_extra: int = 40,
+    mxu_ok: bool = False,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Certificate-bucketed cross 1-NN (the JAX package's
+    ``nn_pruned_bucketed_sorted``): same contract as ``nn_pruned_sorted``
+    without ``exclude_self``.
+
+      P   a probe of the ``p1`` lowest-lb chunks of every tile;
+      B1  the tiles whose count exceeds the probe (at most ftb = min(max(8,
+          ceil8(5 nta / 8)), nta), the largest counts first; more set
+          ``overflow``), extended over slots [p1, w1), w1 = min(p1 +
+          b1_extra, ncb), seeded;
+      A   the ``ft`` = min(256, nta) tiles whose count exceeds w1, over
+          their cap2a = min(max(4 w1, 192), ncb) lowest-lb chunks, seeded;
+      B   the ft2 = min(32, ft) of those still over cap2a, over cap2b =
+          min(512, ncb) chunks, seeded.
+
+    Every pass is K1 over global tile ids; tiles and candidates are chosen
+    by stable order (``stable_top``, the stable lb sort). The JAX package
+    refines every chosen tile over the pass's whole width; here each pass
+    is gated to what a tile's count needs (none for a tile that does not).
+    Whenever ``overflow`` is clear the rows are the same: every tile is
+    then certified, its row the exact lexicographic (d, id) minimum, and
+    the prefix its count covers holds every chunk that could beat it.
+    ``mxu_ok`` is taken for the JAX package's signature; every pass runs
+    K1's difference form.
+    """
+    nta = ga.points.shape[0] // CHUNK
+    ncb = gb.n_chunks
+    p1 = min(p1, ncb)
+    w1 = min(p1 + b1_extra, ncb)
+    valid_t, lb, order = tile_bounds(ga, gb, n_a)
+
+    def counts_of(d, tiles=None):
+        if tiles is None:
+            return count_under(lb, cert_ub(d, valid_t))
+        return count_under(lb[tiles], cert_ub(d, valid_t[tiles]))
+
+    d1, i1 = refine_nn(ga.points, gb.points, gb.perm,
+                       order[:, :p1].contiguous())
+    counts1 = counts_of(d1)
+    overflow = torch.zeros((), dtype=torch.bool, device=d1.device)
+
+    def extend(tiles, lo, width, need):
+        """Refine ``tiles`` over slots [lo, width) of their lb order, each
+        gated to its count when ``need`` says it needs more, seeded."""
+        nonlocal d1, i1
+        live = torch.where(need[tiles],
+                           torch.clamp(counts1[tiles], max=width) - lo, 0)
+        t = tiles.to(torch.int32)
+        fd, fi = refine_nn(ga.points, gb.points, gb.perm,
+                           order[tiles, lo:width].contiguous(), tiles=t,
+                           ncand=live.to(torch.int32),
+                           init=(d1[tiles], i1[tiles]))
+        d1, i1 = d1.index_copy(0, tiles, fd), i1.index_copy(0, tiles, fi)
+        return fd
+
+    if w1 > p1:
+        ftb = min(max(8, (5 * nta // 8 + 7) // 8 * 8), nta)
+        need1 = counts1 > p1
+        overflow = overflow | (need1.sum() > ftb)
+        extend(stable_top(torch.where(need1, counts1, 0), ftb), p1, w1, need1)
+        counts1 = counts_of(d1)
+
+    cap2a = min(max(4 * w1, 192), ncb)
+    cap2b = min(512, ncb)
+    ft = min(256, nta)
+    need_a = counts1 > w1
+    overflow = overflow | (need_a.sum() > ft)
+    if cap2a > w1 and ft > 0:
+        otiles = stable_top(torch.where(need_a, counts1, 0), ft)
+        counts2a = counts_of(extend(otiles, 0, cap2a, need_a), otiles)
+        if cap2b > cap2a:
+            ft2 = min(32, ft)
+            need_b = torch.where(counts2a > cap2a, counts2a, 0)
+            overflow = overflow | ((need_b > 0).sum() > ft2)
+            b2tiles = otiles[stable_top(need_b, ft2)]
+            # counts1 of a tile past cap2a is at least its tier-A recount
+            counts1 = counts1.index_copy(0, otiles, counts2a)
+            counts2b = counts_of(
+                extend(b2tiles, 0, cap2b, counts1 > cap2a), b2tiles)
+            overflow = overflow | (counts2b > cap2b).any()
+        else:
+            overflow = overflow | (counts2a > cap2a).any()
+    return d1.reshape(nta * CHUNK), i1.reshape(nta * CHUNK), overflow
 
 
 def unsort_rows(g: ChunkGrid, x: torch.Tensor) -> torch.Tensor:

@@ -127,30 +127,34 @@ def estimate_normals(
     return normals_from_neighbors(points, neighbor_idx, k, n_valid=n_valid)
 
 
-def estimation_core(g, n: int, k: int, cap: int, fallback_tiles: int,
-                    prologue: str = "xla", sched: str = "counted"):
+def estimation_core(g, n: int, k: int, cap: int, ft: int, flags=None):
     """Estimation over a prebuilt grid, one certificate rung, with the
-    pruned k-NN's ``prologue`` and ``sched``.
+    pruned k-NN's schedule ``flags`` (``knn_pruned.KnnFlags``;
+    ``knn_flags_from_env()`` read at this call when None: its prologue and
+    stage-1 schedule among them).
 
     Normals come straight from the in-kernel moment sums; only the (P, 3)
     normals are unsorted. The k-NN includes each point itself, so slot 1 is
     its nearest other point: the intra-cloud boundary stats (reference
     compute_nearest_neighbor_distance, cloud_pair.py:108-109) come for free.
+    Nothing is read back to the host: ``overflow`` stays a device tensor.
 
-    Returns ``(normals in original row order, mn, mx, overflow)``; the
-    caller owns the escalation on ``overflow``.
+    Returns ``(normals in original row order, normals in sorted order, mn,
+    mx, overflow)``, the JAX package's tuple; the caller owns the
+    escalation on ``overflow``.
     """
     from .knn_pruned import knn_pruned_sorted
     from .nn_pruned import unsort_rows
 
     dk, _, overflow, mom = knn_pruned_sorted(
-        g, g, n, k, cap=cap, fallback_tiles=fallback_tiles, with_moments=True,
-        prologue=prologue, sched=sched)
+        g, g, n, k, cap=cap, fallback_tiles=ft, with_moments=True,
+        flags=flags)
     valid = torch.arange(g.perm.shape[0], device=dk.device) < n
     d1 = torch.sqrt(torch.clamp(dk[:, min(k - 1, 1)], min=0.0))
     mn = torch.where(valid, d1, torch.inf).amin()
     mx = torch.where(valid, d1, -torch.inf).amax()
-    return unsort_rows(g, normals_from_moments(mom)), mn, mx, overflow
+    nrm_sorted = normals_from_moments(mom)
+    return unsort_rows(g, nrm_sorted), nrm_sorted, mn, mx, overflow
 
 
 # Certified (cap, fallback_tiles) rung per (padded size, k): same-shaped
@@ -184,28 +188,27 @@ def estimate_normals_cloud(cloud, k: int = DEFAULT_KNN,
     (``knn_base_rung``). Small clouds take the brute-force k-NN; so do
     clouds with fewer than k valid points, whose moments would count
     sentinel rows into the k-set where the brute path masks them (FLANN's
-    "fewer neighbours"). The boundary stats that fall out of the pruned
-    pass are cached on the cloud when none are set. ``prologue`` and
-    ``sched`` are the pruned k-NN's, by default ``PCC_KNN_PROLOGUE`` and
-    ``PCC_KNN_SCHED`` read at this call.
+    "fewer neighbours"). The schedule is ``knn_flags_from_env()`` read at
+    this call, with ``prologue`` and ``sched`` in place of its own when
+    given. The boundary stats that fall out of the pruned pass are cached
+    on the cloud when none are set, and so are the sorted normals at the
+    default k, as the JAX package caches them.
     """
     p = cloud.padded_size
     n = int(cloud.n)
     if p < _PRUNE_THRESHOLD or n < k:
         return estimate_normals(cloud.points, k=k, n_valid=n)
-    from .nn_pruned import (
-        KNN_PROLOGUE_ENV, resolve_knn_sched, resolve_prologue)
+    from .knn_pruned import resolve_knn_flags
 
-    prologue = resolve_prologue(prologue, KNN_PROLOGUE_ENV)
-    sched = resolve_knn_sched(sched)
+    flags = resolve_knn_flags(prologue=prologue, sched=sched)
     g = cloud.get_grid()
     ncb = g.n_chunks
     memo_key = (p, k)
     cap, fallback_tiles = ladder_lookup(_LADDER_MEMO, memo_key,
                                         knn_base_rung(cap, fallback_tiles))
     while True:
-        nrm, mn, mx, overflow = estimation_core(g, n, k, cap, fallback_tiles,
-                                                prologue, sched)
+        nrm, nrm_sorted, mn, mx, overflow = estimation_core(
+            g, n, k, cap, fallback_tiles, flags)
         # Exact iff certified or stage 1 refined every chunk.
         if not bool(overflow) or cap >= ncb:
             ladder_store(_LADDER_MEMO, memo_key, (cap, fallback_tiles))
@@ -213,4 +216,8 @@ def estimate_normals_cloud(cloud, k: int = DEFAULT_KNN,
         cap, fallback_tiles = next_rung(cap, fallback_tiles, ncb, p // CHUNK)
     if k >= 2 and n >= 2 and cloud._boundary_stats is None:
         cloud._boundary_stats = (mn, mx)
+    # Only default-k normals may feed the sorted-normals cache that the
+    # pair sweeps read.
+    if k == DEFAULT_KNN and cloud._sorted_normals is None:
+        cloud._sorted_normals = nrm_sorted
     return nrm

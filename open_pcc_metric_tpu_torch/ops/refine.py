@@ -380,10 +380,35 @@ def refine_nn_payload_reference(
 
 
 def _extract_k(d: torch.Tensor, ids: torch.Tensor, k: int):
+    """The ascending k smallest distinct (d, id) pairs over the last axis,
+    ending in (inf, INT_MAX) where a row has fewer: the result of the JAX
+    package's ``_extract_k`` (k rounds of the lexicographic minimum, kept
+    as ``_extract_k_rounds``, the tests' reference), from stable sorts: by
+    id, then by d; a pair equal to its left neighbour is a repeat, and the
+    first k others are scattered to their ranks among the kept pairs."""
+    if d.shape[-1] < k:
+        pad = d.shape[:-1] + (k - d.shape[-1],)
+        d = torch.cat([d, d.new_full(pad, torch.inf)], dim=-1)
+        ids = torch.cat([ids, ids.new_full(pad, INT_MAX)], dim=-1)
+    o = torch.sort(ids, dim=-1, stable=True).indices
+    d, ids = d.gather(-1, o), ids.gather(-1, o)
+    o = torch.sort(d, dim=-1, stable=True).indices
+    d, ids = d.gather(-1, o), ids.gather(-1, o)
+    keep = torch.ones_like(ids, dtype=torch.bool)
+    keep[..., 1:] = (d[..., 1:] != d[..., :-1]) | (ids[..., 1:] != ids[..., :-1])
+    # rank among the kept pairs; repeats and ranks >= k land in column k
+    rank = torch.where(keep, keep.cumsum(dim=-1) - 1, k).clamp(max=k)
+    shape = d.shape[:-1] + (k + 1,)
+    return (d.new_full(shape, torch.inf).scatter_(-1, rank, d)[..., :k],
+            ids.new_full(shape, INT_MAX).scatter_(-1, rank, ids)[..., :k])
+
+
+def _extract_k_rounds(d: torch.Tensor, ids: torch.Tensor, k: int):
     """k rounds of (lexicographic minimum, mask it out) over the last axis:
     the ascending k smallest distinct (d, id) pairs. Masked entries become
     (inf, INT_MAX), so a row with fewer than k finite pairs ends in
-    (inf, INT_MAX). The port of the JAX package's ``_extract_k``."""
+    (inf, INT_MAX). The JAX package's ``_extract_k``, kept as the tests'
+    reference for ``_extract_k``."""
     out_d = d.new_empty(d.shape[:-1] + (k,))
     out_i = ids.new_empty(ids.shape[:-1] + (k,))
     for r in range(k):

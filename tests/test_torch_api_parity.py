@@ -96,6 +96,43 @@ def test_parallel_positional_names_match_jax(name):
         name, [])
 
 
+# The TPU layout parameters of the JAX package's searches: its transposed
+# (8, P) query packs, interpret-mode switch and ring chunking. The port's
+# kernels read the sorted points as they are, so it takes none of them.
+TPU_LAYOUT = {"qt8", "qt8_a", "qt8_b", "interpret", "chunk_a", "chunk_b"}
+
+# (module, name, the port's keyword-only additions after JAX's parameters)
+SEARCH_FUNCTIONS = [
+    ("ops.knn_pruned", "knn_pruned_sorted", ["p1", "prologue", "sched"]),
+    ("ops.knn_pruned", "knn_flags_from_env", []),
+    ("ops.nn_pruned", "nn_pruned_sorted", ["p1", "prologue", "sched"]),
+    ("ops.nn_pruned", "nn_pruned_bucketed_sorted", []),
+    ("ops.fused", "pair_stats", ["prologue", "refine_impl", "payload",
+                                 "sched"]),
+    ("ops.fused", "cold_pair_program", ["prologue", "refine_impl",
+                                        "payload", "sched"]),
+    ("ops.normals", "estimation_core", []),
+]
+
+
+@pytest.mark.parametrize("module,name,port_only", SEARCH_FUNCTIONS,
+                         ids=[n for _, n, _ in SEARCH_FUNCTIONS])
+def test_search_positional_names_match_jax(module, name, port_only):
+    """The searches, the fused evaluation's programs and the estimation
+    take JAX's positional parameters in JAX's order, less the TPU layout
+    ones; the port's own parameters are keyword-only, after them, so a
+    JAX-style positional call binds every argument to its JAX meaning."""
+    port = getattr(importlib.import_module(
+        f"open_pcc_metric_tpu_torch.{module}"), name)
+    ref = getattr(importlib.import_module(f"open_pcc_metric_tpu.{module}"),
+                  name)
+    want = [n for n in _positional(ref) if n not in TPU_LAYOUT]
+    assert _positional(port) == want
+    kw_only = [p.name for p in inspect.signature(port).parameters.values()
+               if p.kind == p.KEYWORD_ONLY]
+    assert kw_only == port_only
+
+
 def _arrays(n=1500, seed=3):
     rng = np.random.default_rng(seed)
     return (rng.integers(0, 64, (n, 3)).astype(np.float64),
