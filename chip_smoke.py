@@ -95,7 +95,11 @@ Hausdorff):
     shape (a cached reference, a fresh degraded cloud that estimates
     alone);
   * the bucketed 1-NN (``nn_pruned_bucketed_sorted``) a->b and b->a,
-    bit-identical to ``nn_pruned_sorted`` when it certifies.
+    bit-identical to ``nn_pruned_sorted`` when it certifies;
+  * calls made the JAX package's way: ``nn_pruned_sorted`` under its
+    ``refine_impl`` names ("auto", "pallas", "pallas_interpret", "xla"),
+    each launching K1 as "default" does with the same rows, the JAX-style
+    positional ``nn_chunked`` and ``synthetic_voxel_pair`` on the card.
 
 It prints:
 
@@ -138,7 +142,7 @@ It prints:
     launches a call, first call, median of RUNS after one warm-up,
     Mpts/s, the largest relative difference from ``pair_stats``), and the
     ``ring brute 60k`` and ``ring normals 60k`` lines,
-  * the ``cold fold 800k`` and ``bucketed 800k`` lines,
+  * the ``cold fold 800k``, ``bucketed 800k`` and ``api parity`` lines,
   * a ``{"kernels": [...]}`` JSON line (launches on the paths, K1's also
     on the ring's, K1's, K3's and K4's also on the fold's, K1's on the
     bucketed search's runs, error and
@@ -3452,6 +3456,78 @@ def bucketed_path(origin, reconst, dev, smi):
     return total
 
 
+def api_parity_path(origin, reconst, dev, smi):
+    """Calls made the JAX package's way on the card: ``nn_pruned_sorted``
+    on the 800k a->b sweep (an mxu_exact pair) under the JAX package's
+    ``refine_impl`` names, with the refine knobs unset and the plain
+    versions guarded, each with K1's launches and every other kernel's
+    equal to "default"'s and its rows bit-identical; the JAX-style
+    positional ``nn_chunked(q, q, True, 256, 1024)`` on a 4000-point CUDA
+    cloud equal to the keyword call; and ``synthetic_voxel_pair(...,
+    torch.float32, device=dev)`` drawing the CPU's points and colours.
+    Prints the ``api parity`` line with the phase's wall time."""
+    import torch
+
+    from open_pcc_metric_tpu_torch.cloud import Cloud, synthetic_voxel_pair
+    from open_pcc_metric_tpu_torch.ops.nn import nn_chunked
+    from open_pcc_metric_tpu_torch.ops.nn_pruned import nn_pruned_sorted
+
+    t0 = time.perf_counter()
+    a = Cloud.from_numpy(origin[0], device=dev)
+    b = Cloud.from_numpy(reconst[0], device=dev)
+    ga, gb = a.get_grid(), b.get_grid()
+    mxu_ok = a.mxu_exact() and b.mxu_exact()
+    names = {}
+    restore = _guarded(_plain_names())
+    try:
+        with _env({"PCC_REFINE_IMPL": None, "PCC_NN_EXPANDED": None}):
+            want, want_launches = None, None
+            for name in ("default", "auto", "pallas", "pallas_interpret",
+                         "xla"):
+                _reset_launches()
+                got = nn_pruned_sorted(ga, gb, a.n, cap=CAP,
+                                       fallback_tiles=FALLBACK,
+                                       refine_impl=name, mxu_ok=mxu_ok)
+                torch.cuda.synchronize()
+                launches = _launches()
+                if launches["refine_nn"] <= 0:
+                    raise AssertionError(f"refine_impl={name!r} launched "
+                                         "no K1")
+                if want is None:
+                    want, want_launches = got, launches
+                elif launches != want_launches or not all(
+                        _bit_equal(x, y) for x, y in zip(got, want)):
+                    raise AssertionError(f"refine_impl={name!r} differs from "
+                                         "'default'")
+                names[name] = {"k1_launches": launches["refine_nn"],
+                               "bit_identical": True}
+    finally:
+        restore()
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.integers(0, 64, (4000, 3)).astype(
+        np.float32)).to(dev)
+    pos = nn_chunked(q, q, True, 256, 1024)
+    kw = nn_chunked(q, q, exclude_self=True)
+    if not all(_bit_equal(x, y) for x, y in zip(pos, kw)):
+        raise AssertionError("the JAX-style nn_chunked call differs from the "
+                             "keyword call")
+    on_card = synthetic_voxel_pair(4000, 512, 0, True, torch.float32,
+                                   device=dev)
+    on_cpu = synthetic_voxel_pair(4000, 512, 0, True, torch.float32,
+                                  device="cpu")
+    for c, h in zip(on_card, on_cpu):
+        if c.n != h.n or not (torch.equal(c.points.cpu(), h.points)
+                              and torch.equal(c.colors.cpu(), h.colors)):
+            raise AssertionError("synthetic_voxel_pair on the card differs "
+                                 "from the CPU's")
+    wall = time.perf_counter() - t0
+    print("api parity " + json.dumps({
+        "nn_pruned_sorted 800k a->b": names, "mxu_ok": mxu_ok,
+        "nn_chunked 4000 positional equals keyword": True,
+        "synthetic_voxel_pair card equals cpu": True,
+        "seconds": wall, "card": smi}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3717,6 +3793,8 @@ def main() -> int:
     fold_launches = cold_fold_path(origin, reconst, dev, smi)
     torch.cuda.empty_cache()
     bucketed_k1 = bucketed_path(origin, reconst, dev, smi)
+    torch.cuda.empty_cache()
+    api_parity_path(origin, reconst, dev, smi)
     torch.cuda.empty_cache()
     dag_big = dag_path(origin, reconst, dev, "refine_nn")
     torch.cuda.empty_cache()

@@ -268,6 +268,10 @@ class Cloud:
             return self.host_points
         return self.points[: self.n].cpu().numpy().astype(np.float64)
 
+    def has_colors(self) -> bool:
+        """Whether the cloud carries colours."""
+        return self.colors is not None
+
     def has_normals(self) -> bool:
         """Whether the file gave normals (estimated ones do not count)."""
         return self.normals is not None
@@ -297,7 +301,7 @@ class Cloud:
                 self.valid_points(), device=self.device)
         return self._obb_extent
 
-    def get_grid(self, build: str = "auto"):
+    def get_grid(self, *, build: str = "auto"):
         """Lazily built, cached Morton chunk grid of this cloud.
 
         ``build``: "device" sorts on the cloud's device (``build_grid``),
@@ -346,10 +350,12 @@ def synthetic_sphere_pair(
     noise: float = 0.01,
     seed: int = 0,
     with_colors: bool = True,
-    device: typing.Union[str, torch.device, None] = None,
     dtype: torch.dtype = torch.float32,
+    *,
+    device: typing.Union[str, torch.device, None] = None,
 ) -> typing.Tuple[Cloud, Cloud]:
-    """Clean-vs-perturbed sphere pair (same numpy draws as the JAX package)."""
+    """Clean-vs-perturbed sphere pair (same numpy draws as the JAX package),
+    on ``device`` (keyword-only, as in ``Cloud.from_numpy``)."""
     rng = np.random.default_rng(seed)
     v = rng.normal(size=(n, 3))
     v /= np.linalg.norm(v, axis=1, keepdims=True)
@@ -366,10 +372,12 @@ def synthetic_voxel_pair(
     grid: int = 512,
     seed: int = 0,
     with_colors: bool = True,
-    device: typing.Union[str, torch.device, None] = None,
     dtype: torch.dtype = torch.float32,
+    *,
+    device: typing.Union[str, torch.device, None] = None,
 ) -> typing.Tuple[Cloud, Cloud]:
-    """Integer-grid (voxelised) pair: original vs re-quantised-with-loss.
+    """Integer-grid (voxelised) pair: original vs re-quantised-with-loss
+    (same numpy draws as the JAX package), on ``device`` (keyword-only).
 
     Integer coordinates < 2^10 make all float32 distance math exact.
     """

@@ -28,6 +28,7 @@ def load_cloud(
     path: str,
     dtype: str = "float32",
     pad_to: typing.Optional[int] = None,
+    *,
     device: Device = None,
 ) -> Cloud:
     """Read a cloud file onto ``device`` (the CUDA device when None; raises
@@ -132,6 +133,7 @@ def evaluate_files(
     options: typing.Optional[CalculateOptions] = None,
     dtype: str = "float32",
     backend: str = "auto",
+    *,
     device: Device = None,
 ) -> CalculateResult:
     """Load two files onto ``device`` (the CUDA device when None; raises

@@ -47,8 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(pc_error's --resolution convention) instead of the "
                         "reference's OBB-extent / intra-NN-distance peaks.")
     p.add_argument("--dtype", choices=["float32", "float64"], default="float32",
-                   help="Compute dtype (the CUDA kernel takes float32; "
-                        "default: float32).")
+                   help="Compute dtype (the CUDA kernels take float32, so "
+                        "float64 needs --device cpu; default: float32).")
     p.add_argument("--backend", choices=list(BACKENDS), default="auto",
                    help="NN backend: brute (pallas and jnp are its aliases) "
                         "or pruned; auto takes the brute force below 65536 "
@@ -74,6 +74,9 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         device = torch.device(args.device)
     except RuntimeError as e:
         parser.error(f"--device {args.device!r}: {e}")
+    if device.type == "cuda" and args.dtype == "float64":
+        parser.error("--dtype float64 runs on the CPU only: the CUDA kernels "
+                     "take float32 (pass --device cpu, or --dtype float32)")
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: no CUDA device is available "
                      "(pass --device cpu to evaluate on the CPU)")

@@ -53,6 +53,7 @@ from .nn_pruned import (
     NN_PROLOGUE_ENV, nn_pruned_sorted, nn_pruned_sorted_payload,
     resolve_nn_sched, resolve_prologue, resolve_refine_impl)
 from .refine import PAYLOAD_F
+from .._layout_args import check_pack
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
 
 PAYLOAD_ENV = "PCC_PAYLOAD_KERNEL"
@@ -316,11 +317,13 @@ def pair_stats(
     b_col_sorted: typing.Optional[torch.Tensor] = None,
     a_nrm_sorted: typing.Optional[torch.Tensor] = None,
     b_nrm_sorted: typing.Optional[torch.Tensor] = None,
+    qt8_a: typing.Optional[torch.Tensor] = None,
+    qt8_b: typing.Optional[torch.Tensor] = None,
     color_scheme: typing.Optional[str] = None,
     point_to_plane: bool = False,
     d2_mode: str = "reference",
     with_boundary: bool = True,
-    backend: str = "pruned",
+    backend: str = "jnp",
     prune_cap: typing.Optional[int] = None,
     prune_fallback: typing.Optional[int] = None,
     mxu_ok: bool = False,
@@ -340,7 +343,12 @@ def pair_stats(
     default ``PCC_NN_PROLOGUE`` and ``PCC_NN_SCHED`` read at this call;
     ``refine_impl`` and ``payload`` (module docstring) default to
     ``resolve_refine_impl`` and ``resolve_payload`` at this call, and
-    ``mxu_ok`` asserts that both clouds pass ``Cloud.mxu_exact``."""
+    ``mxu_ok`` asserts that both clouds pass ``Cloud.mxu_exact``. The
+    default ``backend`` is the JAX package's, "jnp", the brute force here.
+    ``qt8_a``/``qt8_b`` are the JAX package's query packs, checked and
+    unused (``_layout_args``)."""
+    check_pack("qt8_a", qt8_a)
+    check_pack("qt8_b", qt8_b)
     rows = max(a_pts.shape[0], b_pts.shape[0])
     if nn_ops.resolve_backend(backend, rows) == "brute":
         return _pair_stats_brute(
@@ -497,7 +505,7 @@ def _ladder(n_chunks: int, run, cap: int, fallback: int):
         cap, fallback = next_rung(cap, fallback, n_chunks, n_chunks)
 
 
-def boundary_stats(cloud, backend: str = "auto",
+def boundary_stats(cloud, backend: str = "auto", *,
                    prune_cap: typing.Optional[int] = None,
                    prune_fallback: typing.Optional[int] = None,
                    prologue: typing.Optional[str] = None,
@@ -587,7 +595,7 @@ def _finish(host, a, obb_future, peak, color_scheme, point_to_plane):
 
 def cold_pair_program(
     a_pts, b_pts, n_a, n_b, a_col=None, b_col=None, ga=None, gb=None,
-    a_nrm=None, a_nrm_s=None, b_nrm=None, b_nrm_s=None,
+    qt8_a=None, qt8_b=None, a_nrm=None, a_nrm_s=None, b_nrm=None, b_nrm_s=None,
     a_col_s=None, b_col_s=None, boundary_a=None,
     color_scheme=None, point_to_plane=True, d2_mode="reference",
     est_a=True, est_b=True, k=30, knn_cap=64, knn_ft=256,
@@ -613,10 +621,14 @@ def cold_pair_program(
     Returns ``(stats, cacheables)``, the latter the per-cloud state for the
     caller to cache. ``prologue``, ``refine_impl``, ``payload`` and
     ``sched`` are the sweeps' (``pair_stats``), read at this call when None.
+    ``qt8_a``/``qt8_b`` are the JAX package's query packs, checked and
+    unused (``_layout_args``).
     """
     from .grid import build_grid
     from .normals import estimation_core
 
+    check_pack("qt8_a", qt8_a)
+    check_pack("qt8_b", qt8_b)
     if ga is None:
         ga = build_grid(a_pts, n_a)
     if gb is None:
@@ -738,8 +750,9 @@ def _fused_evaluate_cold(a, b, color_scheme, point_to_plane, d2_mode, peak,
         kcap, kft = max(rung_a[0], rung_b[0]), max(rung_a[1], rung_b[1])
     stats, cache = cold_pair_program(
         a.points, b.points, a.n, b.n, a.colors, b.colors, a._grid, b._grid,
-        a_nrm, a_nrm_s, b_nrm, b_nrm_s, a._sorted_colors, b._sorted_colors,
-        a._boundary_stats, color_scheme=color_scheme,
+        a_nrm=a_nrm, a_nrm_s=a_nrm_s, b_nrm=b_nrm, b_nrm_s=b_nrm_s,
+        a_col_s=a._sorted_colors, b_col_s=b._sorted_colors,
+        boundary_a=a._boundary_stats, color_scheme=color_scheme,
         point_to_plane=point_to_plane, d2_mode=d2_mode, est_a=est_a,
         est_b=est_b, k=DEFAULT_KNN, knn_cap=kcap or 64, knn_ft=kft or 256,
         prune_cap=cap, prune_fallback=fallback, mxu_ok=mxu_ok,
@@ -772,7 +785,7 @@ def _fused_evaluate_cold(a, b, color_scheme, point_to_plane, d2_mode, peak,
 
 def fused_evaluate(
     a, b, color_scheme=None, point_to_plane=False, d2_mode="reference",
-    backend: str = "auto", peak: typing.Optional[float] = None,
+    backend: str = "auto", peak: typing.Optional[float] = None, *,
     prune_cap: typing.Optional[int] = None,
     prune_fallback: typing.Optional[int] = None,
 ) -> typing.Dict[str, np.float64]:

@@ -127,6 +127,7 @@ def build_grid_host(
     points_np,
     pad_to: int,
     dtype: torch.dtype = torch.float32,
+    *,
     device: typing.Union[str, torch.device, None] = None,
 ) -> ChunkGrid:
     """Host-side grid build from the original float64 points.

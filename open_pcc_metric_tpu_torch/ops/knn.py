@@ -17,6 +17,8 @@ import typing
 
 import torch
 
+from .._layout_args import check_chunk
+
 # Bounds one (query rows x search rows) distance block's element count.
 _BLOCK_ELEMS = 1 << 24
 
@@ -26,14 +28,20 @@ def knn(
     b_points: torch.Tensor,
     k: int,
     exclude_self: bool = False,
+    chunk_a: int = 256,
+    chunk_b: int = 1024,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """For each row of ``a``, the ``k`` nearest rows of ``b``.
 
     Returns ``(idx int32 (Na, k), dist_sq (Na, k))``, ascending by
     distance, ties to the lower index. ``exclude_self`` gives row i of ``a``
     the largest finite distance to row i of ``b`` (``a`` is ``b``). ``k``
-    must be <= Nb.
+    must be <= Nb. ``chunk_a``/``chunk_b`` are the JAX package's tile
+    sizes, checked and unused: the distances go in blocks of
+    ``_BLOCK_ELEMS`` elements here.
     """
+    check_chunk("chunk_a", chunk_a)
+    check_chunk("chunk_b", chunk_b)
     na, nb = a_points.shape[0], b_points.shape[0]
     if k > nb:
         raise ValueError(f"k={k} exceeds the {nb} search rows")

@@ -381,6 +381,7 @@ def knn_pruned(
     exclude_self: bool = False,
     cap: int = 64,
     fallback_tiles: int = 256,
+    *,
     prologue: typing.Optional[str] = None,
     sched: typing.Optional[str] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:

@@ -28,6 +28,7 @@ import torch
 
 from . import nn_pruned, refine
 from .refine import INT_MAX, MAX_SPLITS, _launch, _offsets, sm_count
+from .._layout_args import check_chunk
 
 # At or above this many padded rows the bound-pruned search takes over from
 # the brute force (the JAX package's value).
@@ -71,6 +72,8 @@ def nn_chunked(
     a_points: torch.Tensor,
     b_points: torch.Tensor,
     exclude_self: bool = False,
+    chunk_a: int = 256,
+    chunk_b: int = 1024,
     a_offset: int = 0,
     b_offset: int = 0,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
@@ -81,8 +84,12 @@ def nn_chunked(
     the lowest index. ``a_offset``/``b_offset`` are the global row offsets
     of the two blocks: with ``exclude_self`` the masked pair is
     ``a_offset + i == b_offset + j`` (d = inf), which lets a ring-sharded
-    self search exclude the true global diagonal.
+    self search exclude the true global diagonal. ``chunk_a``/``chunk_b``
+    are the JAX package's tile sizes, checked and unused: the distances go
+    in blocks of ``_BLOCK_ELEMS`` elements here.
     """
+    check_chunk("chunk_a", chunk_a)
+    check_chunk("chunk_b", chunk_b)
     _check_points(a_points, b_points)
     na, nb = a_points.shape[0], b_points.shape[0]
     dev = a_points.device

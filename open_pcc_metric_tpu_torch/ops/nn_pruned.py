@@ -82,12 +82,19 @@ from .refine import (
     select_candidates)
 from .refine_adaptive import adaptive_refine, pack_candidates, pack_queries
 from .select import count_bbox, select_bbox
+from .._layout_args import check_interpret, check_pack
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
 
 PROLOGUES = ("xla", "select")
 NN_PROLOGUE_ENV = "PCC_NN_PROLOGUE"
 KNN_PROLOGUE_ENV = "PCC_KNN_PROLOGUE"
 REFINE_IMPLS = ("default", "adaptive", "expanded")
+# The JAX package's names for its routes, as the schedules they run here:
+# its kernel and plain routes are the default schedule (K1 on the card,
+# never the plain refine), its interpret-mode adaptive route the adaptive
+# schedule. "auto", its default, reads the environment as None does.
+JAX_REFINE_IMPLS = {"pallas": "default", "pallas_interpret": "default",
+                    "xla": "default", "adaptive_interpret": "adaptive"}
 REFINE_IMPL_ENV = "PCC_REFINE_IMPL"
 NN_EXPANDED_ENV = "PCC_NN_EXPANDED"
 SCHEDS = ("counted", "fixed")
@@ -127,19 +134,23 @@ def resolve_p1(p1: typing.Optional[int], env: str) -> int:
 
 
 def resolve_refine_impl(refine_impl: typing.Optional[str] = None) -> str:
-    """The 1-NN refine schedule a call asks for: ``refine_impl`` when given,
-    else read from the environment at this call: "adaptive" when
-    ``PCC_REFINE_IMPL`` is "adaptive", else "expanded" when
-    ``PCC_NN_EXPANDED`` is "1", else "default". Either only takes effect on
-    clouds that pass ``Cloud.mxu_exact`` (``nn_pruned_sorted``'s mxu_ok)."""
-    if refine_impl is None:
+    """The 1-NN refine schedule a call asks for, one of ``REFINE_IMPLS``:
+    ``refine_impl`` when it names one, a JAX package name mapped through
+    ``JAX_REFINE_IMPLS``, and for None or "auto" read from the environment
+    at this call: "adaptive" when ``PCC_REFINE_IMPL`` is "adaptive", else
+    "expanded" when ``PCC_NN_EXPANDED`` is "1", else "default". Either
+    only takes effect on clouds that pass ``Cloud.mxu_exact``
+    (``nn_pruned_sorted``'s mxu_ok)."""
+    if refine_impl is None or refine_impl == "auto":
         if os.environ.get(REFINE_IMPL_ENV) == "adaptive":
             return "adaptive"
         return "expanded" if os.environ.get(NN_EXPANDED_ENV) == "1" \
             else "default"
+    refine_impl = JAX_REFINE_IMPLS.get(refine_impl, refine_impl)
     if refine_impl not in REFINE_IMPLS:
+        names = REFINE_IMPLS + ("auto",) + tuple(JAX_REFINE_IMPLS)
         raise ValueError(f"unknown refine_impl {refine_impl!r}; one of "
-                         f"{REFINE_IMPLS}")
+                         f"{names}")
     return refine_impl
 
 
@@ -275,8 +286,9 @@ def nn_pruned_sorted(
     exclude_self: bool = False,
     cap: int = 32,
     fallback_tiles: int = 128,
-    refine_impl: str = "default",
+    refine_impl: str = "auto",
     mxu_ok: bool = False,
+    qt8: typing.Optional[torch.Tensor] = None,
     *,
     p1: typing.Optional[int] = None,
     prologue: str = "xla",
@@ -307,8 +319,13 @@ def nn_pruned_sorted(
     prologue) and ``refine_impl="expanded"`` K1's expanded-norm mode (in
     the tiers only on the fixed schedule: K1b, like the JAX package's
     straight kernel, has the difference form alone). Results are
-    bit-identical either way on valid rows.
+    bit-identical either way on valid rows. ``refine_impl`` is read by
+    ``resolve_refine_impl``: "auto", the default, at this call from the
+    environment; the JAX package's "pallas", "pallas_interpret" and "xla"
+    run the default schedule. ``qt8`` is the JAX package's query pack,
+    checked and unused (``_layout_args``).
     """
+    check_pack("qt8", qt8)
     refine_impl = resolve_refine_impl(refine_impl)
     if refine_impl == "adaptive" and mxu_ok:
         return nn_pruned_adaptive_sorted(
@@ -407,6 +424,7 @@ def nn_pruned_adaptive_sorted(
     cap: int = 64,
     ft3: int = 64,
     p1: int = 8,
+    interpret: bool = False,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The adaptive 1-NN schedule (the JAX package's
     ``nn_pruned_adaptive_sorted``), every refine through K7.
@@ -431,8 +449,10 @@ def nn_pruned_adaptive_sorted(
     and P2 together walked all of ``order[:cap]`` for every tail tile; the
     lexicographic (d, id) minimum is associative and idempotent, and each
     candidate's d is computed the same way in every pass. A tile that P3
-    does not extend (ncand 0) keeps its seed unchanged.
+    does not extend (ncand 0) keeps its seed unchanged. ``interpret`` is
+    the JAX package's interpret-mode switch, checked and unused.
     """
+    check_interpret(interpret)
     if ga.points.dtype != torch.float32:
         raise ValueError("adaptive refinement is float32-only")
     nta = ga.points.shape[0] // CHUNK
@@ -486,7 +506,10 @@ def nn_pruned_sorted_payload(
     JAX package's ``nn_pruned_sorted_payload``).
 
     ``pay_sorted`` (Pb, PAYLOAD_F) is the search cloud's payload in sorted
-    order, ``pay_orig`` the same rows in original order. Returns ``(dist_sq
+    order, ``pay_orig`` the same rows in original order. The JAX package
+    takes the sorted payload transposed, (PAYLOAD_F, Pb), as
+    ``payT_sorted``: that layout, or any other but (Pb, PAYLOAD_F), raises
+    ValueError rather than be read as rows. Returns ``(dist_sq
     (Pa,), idx_into_ORIGINAL_b (Pa,) int32, payload (Pa, PAYLOAD_F),
     overflow)``. Schedule: stage 1 is K6 over the ``cap`` lowest-lb chunks
     of every tile, ungated and unseeded; then the certificate, and one tier
@@ -494,6 +517,12 @@ def nn_pruned_sorted_payload(
     from scratch through K1 over cap2 = min(max(8 cap, 512), ncb) chunks,
     their payload rows patched by a gather of ``pay_orig`` at the id.
     """
+    want = (gb.points.shape[0], PAYLOAD_F)
+    if tuple(pay_sorted.shape) != want:
+        raise ValueError(
+            f"pay_sorted must be {want} (search rows, payload columns), got "
+            f"{tuple(pay_sorted.shape)}; the JAX package's payT_sorted is "
+            f"its transpose")
     nta = ga.points.shape[0] // CHUNK
     ncb = gb.n_chunks
     cap = min(cap, ncb)
@@ -528,7 +557,9 @@ def nn_pruned_bucketed_sorted(
     n_a: int,
     p1: int = 8,
     b1_extra: int = 40,
+    interpret: bool = False,
     mxu_ok: bool = False,
+    qt8: typing.Optional[torch.Tensor] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Certificate-bucketed cross 1-NN (the JAX package's
     ``nn_pruned_bucketed_sorted``): same contract as ``nn_pruned_sorted``
@@ -552,8 +583,11 @@ def nn_pruned_bucketed_sorted(
     then certified, its row the exact lexicographic (d, id) minimum, and
     the prefix its count covers holds every chunk that could beat it.
     ``mxu_ok`` is taken for the JAX package's signature; every pass runs
-    K1's difference form.
+    K1's difference form. ``interpret`` and ``qt8`` are the JAX package's
+    interpret-mode switch and query pack, checked and unused.
     """
+    check_interpret(interpret)
+    check_pack("qt8", qt8)
     nta = ga.points.shape[0] // CHUNK
     ncb = gb.n_chunks
     p1 = min(p1, ncb)
@@ -636,6 +670,7 @@ def nn_pruned_with_grids(
     exclude_self: bool = False,
     cap: int = 32,
     fallback_tiles: int = 128,
+    *,
     prologue: typing.Optional[str] = None,
     sched: typing.Optional[str] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
@@ -674,6 +709,7 @@ def nn_pruned(
     exclude_self: bool = False,
     cap: int = 32,
     fallback_tiles: int = 128,
+    *,
     prologue: typing.Optional[str] = None,
     sched: typing.Optional[str] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:

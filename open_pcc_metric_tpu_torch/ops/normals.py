@@ -176,7 +176,7 @@ def knn_base_rung(cap: typing.Optional[int] = None,
             else fallback_tiles)
 
 
-def estimate_normals_cloud(cloud, k: int = DEFAULT_KNN,
+def estimate_normals_cloud(cloud, k: int = DEFAULT_KNN, *,
                            cap: typing.Optional[int] = None,
                            fallback_tiles: typing.Optional[int] = None,
                            prologue: typing.Optional[str] = None,

@@ -39,6 +39,7 @@ import torch
 from .grid import CHUNK
 from .refine import Init, _check_pair, _check_splits, _cuda_checks, \
     _expanded, _launch, _lexmin, sm_count, split_count, sq_norm
+from .._layout_args import check_interpret
 
 
 def pack_queries(points: torch.Tensor) -> torch.Tensor:
@@ -117,6 +118,8 @@ def adaptive_refine(
     tids: torch.Tensor,
     init: Init = None,
     exclude_self: bool = False,
+    interpret: bool = False,
+    *,
     splits: typing.Optional[int] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """K7 (see ``adaptive_refine_reference`` for the contract).
@@ -129,9 +132,11 @@ def adaptive_refine(
     row's live slots are split over ``splits`` blocks of one cluster
     (``split_count(rows, slots, sm_count(device))`` when None; 1 forces one
     block a row), which changes no result: an argument for the tests and
-    chip_smoke.py, not a knob. Each launch adds one to
+    chip_smoke.py, not a knob. ``interpret`` is the JAX package's
+    interpret-mode switch, checked and unused. Each launch adds one to
     ``adaptive_refine.launches``.
     """
+    check_interpret(interpret)
     _check_splits(splits)
     if qhat.device.type == "cpu":
         return adaptive_refine_reference(qhat, bhat, cand, ncand, tids, init,

@@ -5,7 +5,8 @@ embarrassingly parallel, so hosts coordinate through ``torch.distributed``
 (control plane) and write disjoint journal shards (data plane).
 
 Typical use, with ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
-``MASTER_PORT`` set in each process's environment:
+``MASTER_PORT`` set in each process's environment (or the JAX package's
+``init(coordinator_address=..., num_processes=..., process_id=...)``):
 
     from open_pcc_metric_tpu_torch.parallel import multihost
     multihost.init()                      # torch.distributed process group
@@ -16,6 +17,7 @@ Journals merge by concatenation (each record is self-describing JSONL).
 """
 from __future__ import annotations
 
+import inspect
 import os
 import typing
 
@@ -33,19 +35,53 @@ def _initialized() -> bool:
     return dist is not None and dist.is_initialized()
 
 
-def init(backend: typing.Optional[str] = None, **kwargs) -> None:
+# The JAX package's ``init`` passes its keywords to
+# ``jax.distributed.initialize``; these name what ``init_process_group``'s
+# do (a coordinator "host:port" is its TCP rendezvous).
+_JAX_KEYWORDS = {"coordinator_address": "init_method",
+                 "num_processes": "world_size", "process_id": "rank"}
+
+
+def _group_kwargs(dist, kwargs: dict) -> dict:
+    """``kwargs`` in ``init_process_group``'s names; TypeError for a
+    keyword that is neither the JAX package's nor ``init_process_group``'s,
+    or for one given under both names."""
+    known = {name for name in inspect.signature(
+        dist.init_process_group).parameters
+        if name != "backend" and not name.startswith("_")}
+    out = {}
+    for name, value in kwargs.items():
+        key = _JAX_KEYWORDS.get(name, name)
+        if key not in known:
+            raise TypeError(f"init() got an unexpected keyword argument "
+                            f"{name!r}")
+        if key in out:
+            raise TypeError(f"init() got {key!r} twice (as {name!r} too)")
+        if name == "coordinator_address" and "://" not in value:
+            value = f"tcp://{value}"
+        out[key] = value
+    return out
+
+
+def init(*, backend: typing.Optional[str] = None, **kwargs) -> None:
     """Join the ``torch.distributed`` process group (a no-op when
     single-process or already joined).
 
+    ``kwargs`` are the JAX package's (``coordinator_address``,
+    ``num_processes``, ``process_id``, which become ``init_method=
+    "tcp://..."``, ``world_size`` and ``rank``) or ``init_process_group``'s
+    (``timeout``, for one); any other keyword raises TypeError.
     ``backend``: NCCL when a CUDA device is present and gloo otherwise,
-    unless named. ``kwargs`` go to ``init_process_group``. A process with
-    no coordinator configured (neither ``RANK`` and ``WORLD_SIZE`` in the
-    environment nor ``rank`` and ``world_size`` given) stays standalone,
-    quietly, and never waits for peers; so does one whose configuration
-    ``init_process_group`` rejects.
+    unless named. A process with no coordinator configured (neither
+    ``RANK`` and ``WORLD_SIZE`` in the environment nor a rank and a world
+    size given) stays standalone, quietly, and never waits for peers; so
+    does one whose configuration ``init_process_group`` rejects.
     """
     dist = _dist()
-    if dist is None or dist.is_initialized():
+    if dist is None:
+        return
+    kwargs = _group_kwargs(dist, kwargs)
+    if dist.is_initialized():
         return
     configured = (("RANK" in os.environ and "WORLD_SIZE" in os.environ)
                   or ("rank" in kwargs and "world_size" in kwargs))

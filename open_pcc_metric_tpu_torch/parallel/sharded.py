@@ -13,7 +13,9 @@ single-process picture made of torch devices:
     ``P("frames")`` splits a batch, and each of its clouds is cut into w
     row blocks, block j on slot j (``P("points")``);
   * each ring function takes and returns one tensor per slot of a mesh row:
-    a list in ring order, each tensor on its slot's device;
+    a list in ring order, each tensor on its slot's device, so the list is
+    the ring's axis; JAX's ``axis`` parameter stays in its place, checked
+    and unused;
   * ``lax.ppermute`` is ``_rotate``: after one rotation slot j holds what
     slot j + 1 held (JAX's perm [(i, (i - 1) % w)]). On a repeated device
     the ``.to`` returns the same tensor, which is safe because nothing in
@@ -48,6 +50,7 @@ from ..ops.nn import nn_chunked
 from ..ops.nn_pruned import cert_ub, count_under, lb_order
 from ..ops.normals import DEFAULT_KNN, cov3
 from ..ops.refine import refine_nn, refine_nn_reference
+from .._layout_args import check_axis
 from ..utils.cache import ladder_lookup, ladder_store
 
 Slots = typing.List[torch.Tensor]
@@ -69,6 +72,7 @@ class Mesh:
 def make_mesh(
     n_devices: typing.Optional[int] = None,
     dp: int = 1,
+    *,
     devices: typing.Optional[typing.Sequence] = None,
 ) -> Mesh:
     """Mesh with axes ("frames", "points"): dp frame groups x ring width.
@@ -140,6 +144,7 @@ def _take_rows(better, new, old):
 def ring_nn(
     a_loc: Slots,
     b_loc: Slots,
+    axis: typing.Optional[str] = "points",
     payloads: typing.Tuple[Slots, ...] = (),
     exclude_self: bool = False,
 ) -> typing.Tuple[Slots, Slots, typing.Tuple[Slots, ...]]:
@@ -152,8 +157,11 @@ def ring_nn(
 
     Returns ``(dist_sq, global_idx, best_payloads)``, one tensor per slot
     (each payload a list of slots). Ties break to the lowest GLOBAL index,
-    as the single-device search does.
+    as the single-device search does. ``axis``, here and in every ring
+    function, is the JAX package's ``shard_map`` axis, checked and unused:
+    the ring is the slots' list (``_layout_args``).
     """
+    check_axis(axis)
     nsh = len(a_loc)
     rows_a, rows_b = a_loc[0].shape[0], b_loc[0].shape[0]
     best_d = [torch.full((rows_a,), torch.inf, dtype=a.dtype, device=a.device)
@@ -299,6 +307,7 @@ def ring_nn_pruned(
     b_bb_hi: Slots,
     n_a,
     n_b,
+    axis: typing.Optional[str] = "points",
     payload: typing.Optional[Slots] = None,
     exclude_self: bool = False,
     cap: int = 16,
@@ -328,6 +337,7 @@ def ring_nn_pruned(
     per slot, in local sorted order; ties to the lowest ORIGINAL index,
     bit for bit the single-device searches'.
     """
+    check_axis(axis)
     _check_refine_impl(refine_impl)
     nsh = len(a_loc)
     pl_rows = a_loc[0].shape[0]
@@ -433,6 +443,7 @@ def ring_knn_coords_pruned(
     b_bb_hi: Slots,
     n_a,
     k: int,
+    axis: typing.Optional[str] = "points",
     cap: int = 16,
 ) -> typing.Tuple[Slots, Slots, Slots]:
     """Bound-pruned ring k-NN COORDINATES (normal estimation's search).
@@ -442,6 +453,7 @@ def ring_knn_coords_pruned(
     overflow)`` per slot, ascending; self-inclusive (Open3D's semantics),
     coordinates only, so no cross-shard gather.
     """
+    check_axis(axis)
     nsh = len(a_loc)
     pl_rows = a_loc[0].shape[0]
     ntl = pl_rows // CHUNK
@@ -486,6 +498,7 @@ def ring_knn_coords(
     a_loc: Slots,
     b_loc: Slots,
     k: int,
+    axis: typing.Optional[str] = "points",
 ) -> typing.Tuple[Slots, Slots]:
     """k nearest NEIGHBOUR COORDINATES from the full ring-sharded cloud.
 
@@ -494,6 +507,7 @@ def ring_knn_coords(
     Returns ``(dists (Na_loc, k), coords (Na_loc, k, 3))`` per slot,
     ascending, ties to the earlier candidate (the running buffer first).
     """
+    check_axis(axis)
     nsh = len(a_loc)
     run_d = [torch.full((a.shape[0], k), torch.inf, dtype=a.dtype,
                         device=a.device) for a in a_loc]
@@ -523,9 +537,10 @@ def _pca_normals(coords: torch.Tensor, k: int) -> torch.Tensor:
     return smallest_eigenvector_sym3(cov3(centered) / kk)
 
 
-def ring_normals(points_loc: Slots, k: int = DEFAULT_KNN) -> Slots:
+def ring_normals(points_loc: Slots, k: int = DEFAULT_KNN,
+                 axis: typing.Optional[str] = "points") -> Slots:
     """PCA normals of a ring-sharded cloud (local queries, global k-NN)."""
-    _, coords = ring_knn_coords(points_loc, points_loc, k=k)
+    _, coords = ring_knn_coords(points_loc, points_loc, k=k, axis=axis)
     return [_pca_normals(c, k) for c in coords]
 
 
@@ -535,12 +550,14 @@ def ring_normals_pruned(
     bb_hi: Slots,
     n_valid,
     k: int = DEFAULT_KNN,
+    axis: typing.Optional[str] = "points",
     cap: int = 16,
 ) -> typing.Tuple[Slots, Slots]:
     """PCA normals of a Morton-sorted ring-sharded cloud, bound-pruned:
     ``(normals, overflow)`` per slot."""
     _, coords, ovf = ring_knn_coords_pruned(
-        pts_sorted_loc, pts_sorted_loc, bb_lo, bb_hi, n_valid, k=k, cap=cap)
+        pts_sorted_loc, pts_sorted_loc, bb_lo, bb_hi, n_valid, k=k,
+        axis=axis, cap=cap)
     return [_pca_normals(c, k) for c in coords], ovf
 
 

@@ -199,6 +199,19 @@ def test_cli_device_defaults_to_cuda(tmp_path, capsys):
     assert "CUDA" in capsys.readouterr().err
 
 
+def test_cli_refuses_float64_on_cuda(tmp_path, capsys):
+    """--dtype float64 with a CUDA device (the default) is a usage error
+    that names --device cpu, before any file is read or device sought: the
+    CUDA kernels take float32 only."""
+    p = str(tmp_path / "missing.ply")
+    for extra in ([], ["--device", "cuda:0"]):
+        with pytest.raises(SystemExit) as e:
+            cli_main(["--ocloud", p, "--pcloud", p, "--dtype", "float64"]
+                     + extra)
+        assert e.value.code == 2
+        assert "--device cpu" in capsys.readouterr().err
+
+
 def test_unported_paths_raise():
     """The paths that once raised as unported now give the JAX package's
     numbers: backend="jnp" (the brute force) and engine="dag", on a small

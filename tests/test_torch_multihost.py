@@ -2,10 +2,13 @@
 
 The round-robin split, the journal shard paths and the merge are held
 against the JAX package's functions; ``init()`` without a configured
-coordinator stays standalone and quiet; and one two-process gloo run
+coordinator stays standalone and quiet; ``init()`` with the JAX package's
+keywords joins a one-process group and refuses any keyword that neither
+package's initialiser knows; and one two-process gloo run
 (spawned inside a subprocess with a time limit) shards a real CPU sweep by
 each process's rank and merges a complete, disjoint journal.
 """
+import datetime
 import json
 import os
 import socket
@@ -14,6 +17,7 @@ import sys
 import textwrap
 
 import numpy as np
+import pytest
 import torch.distributed as dist
 
 from open_pcc_metric_tpu_torch.batch import SweepItem
@@ -76,6 +80,39 @@ def test_init_standalone_is_quiet(monkeypatch, capfd):
     assert (multihost.process_index(), multihost.process_count()) == (0, 1)
     assert multihost.shard_path("out.jsonl") == "out.h0.jsonl"
     assert multihost.shard_items([1, 2, 3]) == [1, 2, 3]
+
+
+def test_init_takes_jax_keywords(monkeypatch):
+    """``coordinator_address``, ``num_processes`` and ``process_id`` (the
+    JAX package's ``init`` keywords) join a gloo group of world size 1 and
+    rank 0 through a TCP rendezvous at that address; ``timeout`` (an
+    ``init_process_group`` keyword) bounds the join."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    try:
+        multihost.init(coordinator_address=f"127.0.0.1:{_free_port()}",
+                       num_processes=1, process_id=0, backend="gloo",
+                       timeout=datetime.timedelta(seconds=60))
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert (dist.get_world_size(), dist.get_rank()) == (1, 0)
+        assert (multihost.process_index(), multihost.process_count()) == (
+            0, 1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_init_refuses_unknown_keywords():
+    """A keyword that is neither the JAX package's nor
+    ``init_process_group``'s raises TypeError, as does one given under both
+    names or a positional backend; none of them joins a group."""
+    with pytest.raises(TypeError, match="bogus"):
+        multihost.init(bogus=1)
+    with pytest.raises(TypeError, match="world_size"):
+        multihost.init(num_processes=1, world_size=1)
+    with pytest.raises(TypeError):
+        multihost.init("gloo")
+    assert not dist.is_initialized()
 
 
 _TWO_PROCESS = textwrap.dedent("""
