@@ -3558,8 +3558,7 @@ def main() -> int:
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s "
           "(one nvcc each, in parallel)", flush=True)
     for name, lib in built.items():
-        print(f"build: csrc/{name}.cu -> {lib.path} in "
-              f"{lib.build_seconds:.2f} s", flush=True)
+        print(f"build: csrc/{name}.cu -> {lib.path}", flush=True)
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"ptxas {name}: " + line.strip())

@@ -47,7 +47,7 @@ from .io import point_count
 from .ops.fused import fused_evaluate
 from .ops.nn import BACKENDS
 from .utils import get_logger
-from .utils.profiling import mpoints_per_sec
+from .utils.profiling import bind, mpoints_per_sec, new_pair, span, spanned
 
 logger = get_logger(__name__)
 
@@ -166,13 +166,15 @@ def _finish_upload(cloud, stream) -> None:
         return
     event = getattr(cloud, "_upload_event", None)
     if event is not None:
-        event.synchronize()
+        with span("pcc.upload"):
+            event.synchronize()
         for t in (cloud.points, cloud.colors, cloud.normals):
             if t is not None:
                 t.record_stream(stream)
     cloud._upload_synced = True
 
 
+@spanned("pcc.run_sweep")
 def run_sweep(
     items: typing.Sequence[SweepItem],
     journal_path: str,
@@ -232,8 +234,9 @@ def run_sweep(
             a = cache.get(item.ocloud, dtype, pad_to, device)
             b = cache.get(item.pcloud, dtype, pad_to, device)
         t1 = time.perf_counter()
-        for c in (a, b):
-            _finish_upload(c, main_stream)
+        with span("pcc.load"):
+            for c in (a, b):
+                _finish_upload(c, main_stream)
         t2 = time.perf_counter()
         # Stage split: parse = file IO, padding and the upload calls on the
         # prefetch thread; upload = waiting out the transfers and widen
@@ -242,10 +245,58 @@ def run_sweep(
         return a, b, {"parse_s": round(t1 - t0, 4),
                       "upload_s": round(t2 - t1, 4)}
 
+    # Each pair's spans, its prefetch's included, carry its own pair id.
+    pair_ids = {it.tag: new_pair() for it in todo}
+    fetch = {it.tag: bind(_fetch, pair=pair_ids[it.tag]) for it in todo}
     prefetcher = _cf.ThreadPoolExecutor(PREFETCH_DEPTH)
     futures = {}
     if todo:
-        futures[todo[0].tag] = prefetcher.submit(_fetch, todo[0])
+        futures[todo[0].tag] = prefetcher.submit(fetch[todo[0].tag], todo[0])
+
+    def _prefetched(item):
+        """``item``'s prefetch, after the next PREFETCH_DEPTH are submitted
+        (before resolving this one, so a failed load still keeps the
+        pipeline running)."""
+        fut = futures.pop(item.tag, None)
+        if fut is None:  # self-heal a severed prefetch chain
+            fut = prefetcher.submit(fetch[item.tag], item)
+        pos = todo_index[item.tag]
+        for nxt in todo[pos + 1:pos + 1 + PREFETCH_DEPTH]:
+            if nxt.tag not in futures:
+                futures[nxt.tag] = prefetcher.submit(fetch[nxt.tag], nxt)
+        return fut
+
+    def _evaluate(item) -> dict:
+        rec: dict = {"tag": item.tag, "ocloud": item.ocloud,
+                     "pcloud": item.pcloud, "ts": time.time()}
+        try:
+            with span("pcc.load_wait"):
+                t0 = time.perf_counter()
+                a, b, fetch_stages = _prefetched(item).result()
+                t_loaded = time.perf_counter()
+            metrics = fused_evaluate(
+                a, b, color_scheme=color_scheme,
+                point_to_plane=point_to_plane, d2_mode=d2_mode,
+                backend=backend, peak=peak,
+            )
+            wall = time.perf_counter() - t0
+            rec["metrics"] = {
+                k: (v.tolist() if hasattr(v, "tolist") else float(v))
+                for k, v in metrics.items()
+            }
+            rec["wall_s"] = round(wall, 4)
+            rec["mpoints_per_sec"] = round(
+                mpoints_per_sec(a.n + b.n, wall), 4
+            )
+            rec["stages"] = dict(
+                fetch_stages,
+                load_wait_s=round(t_loaded - t0, 4),
+                eval_s=round(wall - (t_loaded - t0), 4),
+            )
+        except Exception as e:  # skip-and-log per file
+            logger.exception("frame %s failed", item.tag)
+            rec["error"] = f"{type(e).__name__}: {e}"
+        return rec
 
     results = []
     try:
@@ -255,49 +306,10 @@ def run_sweep(
                     logger.info("skip %s (already in journal)", item.tag)
                     results.append(done[item.tag])
                     continue
-                rec: dict = {"tag": item.tag, "ocloud": item.ocloud,
-                             "pcloud": item.pcloud, "ts": time.time()}
-                try:
-                    t0 = time.perf_counter()
-                    fut = futures.pop(item.tag, None)
-                    if fut is None:  # self-heal a severed prefetch chain
-                        fut = prefetcher.submit(_fetch, item)
-                    # Submit the next PREFETCH_DEPTH prefetches before
-                    # resolving this one, so a failed load still keeps the
-                    # pipeline running.
-                    pos = todo_index[item.tag]
-                    for ahead in range(1, PREFETCH_DEPTH + 1):
-                        if pos + ahead < len(todo):
-                            nxt = todo[pos + ahead]
-                            if nxt.tag not in futures:
-                                futures[nxt.tag] = prefetcher.submit(
-                                    _fetch, nxt)
-                    a, b, fetch_stages = fut.result()
-                    t_loaded = time.perf_counter()
-                    metrics = fused_evaluate(
-                        a, b, color_scheme=color_scheme,
-                        point_to_plane=point_to_plane, d2_mode=d2_mode,
-                        backend=backend, peak=peak,
-                    )
-                    wall = time.perf_counter() - t0
-                    rec["metrics"] = {
-                        k: (v.tolist() if hasattr(v, "tolist") else float(v))
-                        for k, v in metrics.items()
-                    }
-                    rec["wall_s"] = round(wall, 4)
-                    rec["mpoints_per_sec"] = round(
-                        mpoints_per_sec(a.n + b.n, wall), 4
-                    )
-                    rec["stages"] = dict(
-                        fetch_stages,
-                        load_wait_s=round(t_loaded - t0, 4),
-                        eval_s=round(wall - (t_loaded - t0), 4),
-                    )
-                except Exception as e:  # skip-and-log per file
-                    logger.exception("frame %s failed", item.tag)
-                    rec["error"] = f"{type(e).__name__}: {e}"
-                journal.write(json.dumps(rec) + "\n")
-                journal.flush()
+                with span("pcc.pair", pair=pair_ids[item.tag]):
+                    rec = _evaluate(item)
+                    journal.write(json.dumps(rec) + "\n")
+                    journal.flush()
                 results.append(rec)
     finally:
         prefetcher.shutdown(wait=True, cancel_futures=True)

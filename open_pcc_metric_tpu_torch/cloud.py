@@ -19,6 +19,8 @@ import typing
 import numpy as np
 import torch
 
+from .utils.profiling import span
+
 # Large-but-finite sentinel: squared distances to it stay finite in float32
 # (~3e18 << 3.4e38), so min/argmin logic never sees NaN/inf.
 PAD_SENTINEL = 1.0e9
@@ -266,7 +268,9 @@ class Cloud:
         """Valid points as a host numpy array (for host-side algorithms)."""
         if self.host_points is not None:
             return self.host_points
-        return self.points[: self.n].cpu().numpy().astype(np.float64)
+        with span("pcc.readback"):
+            host = self.points[: self.n].cpu()
+        return host.numpy().astype(np.float64)
 
     def has_colors(self) -> bool:
         """Whether the cloud carries colours."""

@@ -18,6 +18,7 @@ from .cloud import Cloud
 from .cloud_pair import CloudPair
 from .io import read_point_cloud
 from .options import CalculateOptions, transform_options
+from .utils.profiling import new_pair, span
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -35,15 +36,18 @@ def load_cloud(
     when there is none), padded to ``pad_to`` or its own bucket. ``thin``
     stays "auto", as in the JAX package: on a CUDA device integer points
     and 8-bit colours upload narrow and widen there (``Cloud.from_numpy``)."""
-    raw = read_point_cloud(path)
-    return Cloud.from_numpy(
-        raw.points,
-        colors=raw.colors,
-        normals=raw.normals,
-        device=device,
-        dtype=_DTYPES[dtype],
-        pad_to=pad_to,
-    )
+    with span("pcc.load"):
+        with span("pcc.parse"):
+            raw = read_point_cloud(path)
+        with span("pcc.upload"):
+            return Cloud.from_numpy(
+                raw.points,
+                colors=raw.colors,
+                normals=raw.normals,
+                device=device,
+                dtype=_DTYPES[dtype],
+                pad_to=pad_to,
+            )
 
 
 def evaluate_pair(
@@ -138,6 +142,7 @@ def evaluate_files(
 ) -> CalculateResult:
     """Load two files onto ``device`` (the CUDA device when None; raises
     when there is none) and evaluate them with ``evaluate_pair``."""
-    origin = load_cloud(ocloud, dtype=dtype, device=device)
-    reconst = load_cloud(pcloud, dtype=dtype, device=device)
-    return evaluate_pair(origin, reconst, options, backend=backend)
+    with span("pcc.pair", pair=new_pair()):
+        origin = load_cloud(ocloud, dtype=dtype, device=device)
+        reconst = load_cloud(pcloud, dtype=dtype, device=device)
+        return evaluate_pair(origin, reconst, options, backend=backend)

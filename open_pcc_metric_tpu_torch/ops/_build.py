@@ -20,7 +20,6 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 import typing
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,7 +42,6 @@ _LIBS: typing.Dict[str, "BuiltLibrary"] = {}
 class BuiltLibrary(typing.NamedTuple):
     lib: ctypes.CDLL
     path: str
-    build_seconds: float  # 0.0 when an earlier build was reused
     log: str  # nvcc/ptxas output of this build ("" when reused)
 
 
@@ -105,12 +103,8 @@ def _compile(src: str, dest: str) -> str:
 def _build_one(name: str) -> BuiltLibrary:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     dest = os.path.join(BUILD_ROOT, source_digest(name), f"lib{name}.so")
-    seconds, log = 0.0, ""
-    if not os.path.exists(dest):
-        t0 = time.perf_counter()
-        log = _compile(src, dest)
-        seconds = time.perf_counter() - t0
-    return BuiltLibrary(ctypes.CDLL(dest), dest, seconds, log)
+    log = _compile(src, dest) if not os.path.exists(dest) else ""
+    return BuiltLibrary(ctypes.CDLL(dest), dest, log)
 
 
 def load_many(names: typing.Sequence[str]) -> typing.Dict[str, BuiltLibrary]:

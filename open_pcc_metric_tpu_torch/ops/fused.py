@@ -55,6 +55,7 @@ from .nn_pruned import (
 from .refine import PAYLOAD_F
 from .._layout_args import check_pack
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
+from ..utils.profiling import bind, span, spanned
 
 PAYLOAD_ENV = "PCC_PAYLOAD_KERNEL"
 
@@ -381,7 +382,8 @@ def _to_host(stats: typing.Dict[str, typing.Any]) -> typing.Dict[str, np.ndarray
            if k not in keys}
     if keys:
         flat = torch.cat([stats[k].reshape(-1).to(torch.float64) for k in keys])
-        flat = flat.cpu().numpy()
+        with span("pcc.readback"):
+            flat = flat.cpu().numpy()
         o = 0
         for k in keys:
             shape = tuple(stats[k].shape)
@@ -391,6 +393,7 @@ def _to_host(stats: typing.Dict[str, typing.Any]) -> typing.Dict[str, np.ndarray
     return out
 
 
+@spanned("pcc.finalize")
 def finalize_stats(
     stats: typing.Dict[str, typing.Any],
     extent_peak: float,
@@ -541,7 +544,9 @@ def boundary_stats(cloud, backend: str = "auto", *,
                 g, g, cloud.n, exclude_self=True, cap=cap,
                 fallback_tiles=fallback, prologue=prologue,
                 refine_impl=refine_impl, mxu_ok=mxu_ok, sched=sched)
-            return d, bool(overflow)
+            with span("pcc.readback"):
+                overflow = bool(overflow)
+            return d, overflow
 
         d, _ = _ladder(cloud.padded_size // CHUNK, run,
                        *nn_base_rung(prune_cap, prune_fallback))
@@ -558,7 +563,7 @@ def _prefetch_obb(a, peak):
     if peak is not None or a._obb_extent is not None:
         return None
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    fut = pool.submit(a.get_obb_extent)
+    fut = pool.submit(bind(a.get_obb_extent))
     pool.shutdown(wait=False)
     return fut
 
@@ -586,13 +591,16 @@ def _finish(host, a, obb_future, peak, color_scheme, point_to_plane):
     if peak is not None:
         extent_peak = float(peak)
     elif obb_future is not None:
-        extent_peak = float(np.max(obb_future.result()))
+        with span("pcc.obb_wait"):
+            extent = obb_future.result()
+        extent_peak = float(np.max(extent))
     else:
         extent_peak = float(np.max(a.get_obb_extent()))
     return finalize_stats(host, extent_peak, color_scheme=color_scheme,
                           point_to_plane=point_to_plane, peak=peak)
 
 
+@spanned("pcc.fold")
 def cold_pair_program(
     a_pts, b_pts, n_a, n_b, a_col=None, b_col=None, ga=None, gb=None,
     qt8_a=None, qt8_b=None, a_nrm=None, a_nrm_s=None, b_nrm=None, b_nrm_s=None,
@@ -761,7 +769,8 @@ def _fused_evaluate_cold(a, b, color_scheme, point_to_plane, d2_mode, peak,
     host = _to_host(stats)  # the one round trip: results and overflow
     if bool(host["nn_overflow"]):
         if obb_future is not None:
-            obb_future.result()  # let it finish caching before stepwise
+            with span("pcc.obb_wait"):
+                obb_future.result()  # let it finish caching before stepwise
         return None
     ladder_store(_LADDER_MEMO, memo_key, (cap, fallback))
     if est_a and rung_a == (kcap, kft):
@@ -783,6 +792,7 @@ def _fused_evaluate_cold(a, b, color_scheme, point_to_plane, d2_mode, peak,
     return _finish(host, a, obb_future, peak, color_scheme, point_to_plane)
 
 
+@spanned("pcc.evaluate")
 def fused_evaluate(
     a, b, color_scheme=None, point_to_plane=False, d2_mode="reference",
     backend: str = "auto", peak: typing.Optional[float] = None, *,

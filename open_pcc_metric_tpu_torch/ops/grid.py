@@ -18,6 +18,8 @@ import typing
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
+
 CHUNK = 256  # points per chunk; cloud.pad_bucket guarantees divisibility
 
 # Sentinel rows carry the lattice-corner code (all three 10-bit axes maxed).
@@ -89,6 +91,7 @@ def _chunk_grid(sorted_pts, perm, sorted_codes) -> ChunkGrid:
     )
 
 
+@spanned("pcc.grid")
 def build_grid(points: torch.Tensor, n_valid: int) -> ChunkGrid:
     """Grid built on the points' device.
 
@@ -123,6 +126,7 @@ def bbox_lower_bounds(
     return out
 
 
+@spanned("pcc.grid")
 def build_grid_host(
     points_np,
     pad_to: int,

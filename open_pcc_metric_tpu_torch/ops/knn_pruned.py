@@ -78,6 +78,7 @@ from .nn_pruned import (
     tier_table, unsort_rows, uses_select)
 from .refine import MOM_CH, knn_moments, refine_knn, refine_knn_straight
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
+from ..utils.profiling import span
 
 # refine_impl values: the JAX package's kernel route, then its plain route.
 KERNEL_ROUTE = ("auto", "pallas", "pallas_interpret")
@@ -406,7 +407,9 @@ def knn_pruned(
             ga, gb, n_a, k, exclude_self=exclude_self, cap=cap,
             fallback_tiles=fallback_tiles, flags=flags)
         # Exact iff the certificate passed or stage 1 refined every chunk.
-        if not bool(overflow) or cap >= ncb:
+        with span("pcc.readback"):
+            overflow = bool(overflow)
+        if not overflow or cap >= ncb:
             ladder_store(_ESCALATION_MEMO, key, (cap, fallback_tiles))
             return unsort_rows(ga, ik), unsort_rows(ga, dk)
         cap, fallback_tiles = next_rung(cap, fallback_tiles, ncb, nta)

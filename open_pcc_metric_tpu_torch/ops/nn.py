@@ -29,6 +29,7 @@ import torch
 from . import nn_pruned, refine
 from .refine import INT_MAX, MAX_SPLITS, _launch, _offsets, sm_count
 from .._layout_args import check_chunk
+from ..utils.profiling import spanned
 
 # At or above this many padded rows the bound-pruned search takes over from
 # the brute force (the JAX package's value).
@@ -140,6 +141,7 @@ def occupancy() -> typing.Tuple[int, int]:
     return refine.occupancy("nn_brute")
 
 
+@spanned("pcc.sweep")
 def nn_argmin(
     a_points: torch.Tensor,
     b_points: torch.Tensor,

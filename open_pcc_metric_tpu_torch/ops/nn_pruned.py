@@ -84,6 +84,7 @@ from .refine_adaptive import adaptive_refine, pack_candidates, pack_queries
 from .select import count_bbox, select_bbox
 from .._layout_args import check_interpret, check_pack
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
+from ..utils.profiling import span, spanned
 
 PROLOGUES = ("xla", "select")
 NN_PROLOGUE_ENV = "PCC_NN_PROLOGUE"
@@ -279,6 +280,7 @@ def tier_table(pro: Prologue, gb: ChunkGrid, tiles: torch.Tensor):
     return olb, lb_order(olb)
 
 
+@spanned("pcc.sweep")
 def nn_pruned_sorted(
     ga: ChunkGrid,
     gb: ChunkGrid,
@@ -492,6 +494,7 @@ def nn_pruned_adaptive_sorted(
     return d2.reshape(nta * CHUNK), i2.reshape(nta * CHUNK), overflow
 
 
+@spanned("pcc.sweep")
 def nn_pruned_sorted_payload(
     ga: ChunkGrid,
     gb: ChunkGrid,
@@ -690,7 +693,9 @@ def nn_pruned_with_grids(
             ga, gb, n_a, exclude_self=exclude_self, cap=cap,
             fallback_tiles=fallback_tiles, prologue=prologue, sched=sched)
         # Exact iff the certificate passed, or stage 1 refined every chunk.
-        if not bool(overflow) or cap >= ncb:
+        with span("pcc.readback"):
+            overflow = bool(overflow)
+        if not overflow or cap >= ncb:
             d, idx = unsort_nn_result(ga, gb, d_s, i_s)
             return idx, d
         cap, fallback_tiles = next_rung(cap, fallback_tiles, ncb, nta)
@@ -736,7 +741,9 @@ def nn_pruned(
         d_s, i_s, overflow = nn_pruned_sorted(
             ga, gb, int(n_a), exclude_self=exclude_self, cap=cap,
             fallback_tiles=fallback_tiles, prologue=prologue, sched=sched)
-        if not bool(overflow) or cap >= ncb:
+        with span("pcc.readback"):
+            overflow = bool(overflow)
+        if not overflow or cap >= ncb:
             ladder_store(_ESCALATION_MEMO, key, (cap, fallback_tiles))
             d, idx = unsort_nn_result(ga, gb, d_s, i_s)
             return idx, d

@@ -23,6 +23,7 @@ import torch
 from .eigh3 import smallest_eigenvector_components, smallest_eigenvector_sym3
 from .grid import CHUNK
 from ..utils.cache import ladder_lookup, ladder_store, next_rung
+from ..utils.profiling import span, spanned
 
 DEFAULT_KNN = 30
 
@@ -101,6 +102,7 @@ def normals_from_moments(mom: torch.Tensor) -> torch.Tensor:
     )
 
 
+@spanned("pcc.estimate")
 def estimate_normals(
     points: torch.Tensor,
     k: int = DEFAULT_KNN,
@@ -127,6 +129,7 @@ def estimate_normals(
     return normals_from_neighbors(points, neighbor_idx, k, n_valid=n_valid)
 
 
+@spanned("pcc.estimate")
 def estimation_core(g, n: int, k: int, cap: int, ft: int, flags=None):
     """Estimation over a prebuilt grid, one certificate rung, with the
     pruned k-NN's schedule ``flags`` (``knn_pruned.KnnFlags``;
@@ -210,7 +213,9 @@ def estimate_normals_cloud(cloud, k: int = DEFAULT_KNN, *,
         nrm, nrm_sorted, mn, mx, overflow = estimation_core(
             g, n, k, cap, fallback_tiles, flags)
         # Exact iff certified or stage 1 refined every chunk.
-        if not bool(overflow) or cap >= ncb:
+        with span("pcc.readback"):
+            overflow = bool(overflow)
+        if not overflow or cap >= ncb:
             ladder_store(_LADDER_MEMO, memo_key, (cap, fallback_tiles))
             break
         cap, fallback_tiles = next_rung(cap, fallback_tiles, ncb, p // CHUNK)

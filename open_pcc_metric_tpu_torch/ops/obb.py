@@ -23,6 +23,8 @@ import typing
 import numpy as np
 import torch
 
+from ..utils.profiling import span, spanned
+
 
 def _frame_extents(frames_flat: np.ndarray, verts: np.ndarray,
                    device) -> np.ndarray:
@@ -39,9 +41,12 @@ def _frame_extents(frames_flat: np.ndarray, verts: np.ndarray,
     for s in range(0, f.shape[0], step):
         p = f[s : s + step] @ vt
         ext.append(p.amax(dim=1) - p.amin(dim=1))
-    return torch.cat(ext).cpu().numpy().astype(np.float64)
+    with span("pcc.readback"):
+        ext = torch.cat(ext).cpu()
+    return ext.numpy().astype(np.float64)
 
 
+@spanned("pcc.obb")
 def minimal_obb_extent(
     points: np.ndarray,
     device: typing.Union[bool, str, torch.device] = True,
@@ -66,11 +71,12 @@ def minimal_obb_extent(
     points = np.asarray(points, dtype=np.float64).reshape(-1, 3)
     if points.shape[0] < 4:
         return points.max(axis=0) - points.min(axis=0)
-    try:
-        hull = ConvexHull(points)
-    except Exception:
-        # Coplanar/collinear input: joggle via qhull option QJ.
-        hull = ConvexHull(points, qhull_options="QJ")
+    with span("pcc.obb.hull"):
+        try:
+            hull = ConvexHull(points)
+        except Exception:
+            # Coplanar/collinear input: joggle via qhull option QJ.
+            hull = ConvexHull(points, qhull_options="QJ")
 
     verts = points[hull.vertices]  # (V, 3)
     tris = points[hull.simplices]  # (T, 3, 3)
@@ -93,12 +99,13 @@ def minimal_obb_extent(
     frames = np.stack([u, v, w], axis=1)  # (T, 3, 3): rows are the new axes
     t = frames.shape[0]
 
-    if device is not False:
-        ext = _frame_extents(frames.reshape(3 * t, 3), verts,
-                             device).reshape(t, 3)
-    else:
-        proj_all = frames.reshape(3 * t, 3) @ verts.T  # (3T, V) numpy
-        ext = (proj_all.max(axis=1) - proj_all.min(axis=1)).reshape(t, 3)
+    with span("pcc.obb.project"):
+        if device is not False:
+            ext = _frame_extents(frames.reshape(3 * t, 3), verts,
+                                 device).reshape(t, 3)
+        else:
+            proj_all = frames.reshape(3 * t, 3) @ verts.T  # (3T, V) numpy
+            ext = (proj_all.max(axis=1) - proj_all.min(axis=1)).reshape(t, 3)
 
     vol = np.where(good, ext.prod(axis=1), np.inf)
     best = int(np.argmin(vol))
