@@ -12,6 +12,7 @@ Padding convention (unchanged from the JAX package):
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import os
 import typing
@@ -157,7 +158,8 @@ class Cloud:
     normals: typing.Optional[torch.Tensor] = None
     host_points: typing.Optional[np.ndarray] = None
     _grid: typing.Any = dataclasses.field(default=None, init=False, repr=False)
-    _obb_extent: typing.Optional[np.ndarray] = dataclasses.field(
+    _obb_extent: typing.Union[np.ndarray, concurrent.futures.Future,
+                              None] = dataclasses.field(
         default=None, init=False, repr=False)
     _sorted_colors: typing.Optional[torch.Tensor] = dataclasses.field(
         default=None, init=False, repr=False)
@@ -297,7 +299,11 @@ class Cloud:
 
     def get_obb_extent(self) -> np.ndarray:
         """Cached minimal-OBB extent of this cloud (projection sweep on its
-        device, hull and refinement on the host)."""
+        device, hull and refinement on the host). A pending extent (a
+        future: the hull ``evaluate`` starts while the file is read) is
+        waited for; one whose hull raised raises here at every call."""
+        if isinstance(self._obb_extent, concurrent.futures.Future):
+            self._obb_extent = self._obb_extent.result()
         if self._obb_extent is None:
             from .ops.obb import minimal_obb_extent
 

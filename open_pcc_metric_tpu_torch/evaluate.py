@@ -7,6 +7,7 @@ engine or the lazy metric DAG (``CloudPair -> MetricCalculator``).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import typing
 
 import numpy as np
@@ -14,11 +15,12 @@ import torch
 
 from . import metric as M
 from .calculator import CalculateResult, MetricCalculator
-from .cloud import Cloud
+from .cloud import Cloud, resolve_device
 from .cloud_pair import CloudPair
 from .io import read_point_cloud
+from .io.loaders import _read_point_cloud_staged
 from .options import CalculateOptions, transform_options
-from .utils.profiling import new_pair, span
+from .utils.profiling import bind, new_pair, span
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -36,9 +38,14 @@ def load_cloud(
     when there is none), padded to ``pad_to`` or its own bucket. ``thin``
     stays "auto", as in the JAX package: on a CUDA device integer points
     and 8-bit colours upload narrow and widen there (``Cloud.from_numpy``)."""
+    return _load_cloud(path, dtype, pad_to, device, read_point_cloud)
+
+
+def _load_cloud(path, dtype, pad_to, device, read) -> Cloud:
+    """``load_cloud`` with the file read by ``read(path)``."""
     with span("pcc.load"):
         with span("pcc.parse"):
-            raw = read_point_cloud(path)
+            raw = read(path)
         with span("pcc.upload"):
             return Cloud.from_numpy(
                 raw.points,
@@ -48,6 +55,45 @@ def load_cloud(
                 dtype=_DTYPES[dtype],
                 pad_to=pad_to,
             )
+
+
+def _load_pair(
+    ocloud: str,
+    pcloud: str,
+    dtype: str,
+    device: Device,
+    peak: typing.Optional[float],
+) -> typing.Tuple[Cloud, Cloud]:
+    """``load_cloud`` of both files. Without a user ``peak`` the origin's
+    minimal-OBB hull starts on a thread of its own the moment its float64
+    points are parsed (before its colours, normals and upload, and before
+    the other file is read), on the array ``Cloud.valid_points`` returns;
+    the origin holds it as its pending OBB extent, which the evaluation
+    waits for."""
+    from .ops import obb
+
+    hull = None
+
+    def start(points):
+        nonlocal hull
+        points = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:  # the cloud's card
+            dev = torch.device("cuda", torch.cuda.current_device())
+        with span("pcc.obb.early"):
+            pool = concurrent.futures.ThreadPoolExecutor(1)
+            # minimal_obb_extent is looked up on the thread, at the call,
+            # as Cloud.get_obb_extent looks it up.
+            hull = pool.submit(bind(
+                lambda: obb.minimal_obb_extent(points, device=dev)))
+            pool.shutdown(wait=False)
+
+    read = read_point_cloud if peak is not None else (
+        lambda path: _read_point_cloud_staged(path, start))
+    origin = _load_cloud(ocloud, dtype, None, device, read)
+    if hull is not None:
+        origin._obb_extent = hull
+    return origin, load_cloud(pcloud, dtype=dtype, device=device)
 
 
 def evaluate_pair(
@@ -141,8 +187,10 @@ def evaluate_files(
     device: Device = None,
 ) -> CalculateResult:
     """Load two files onto ``device`` (the CUDA device when None; raises
-    when there is none) and evaluate them with ``evaluate_pair``."""
+    when there is none) and evaluate them with ``evaluate_pair``. Without a
+    user peak the origin's hull starts as soon as its points are parsed."""
+    options = options or CalculateOptions()
     with span("pcc.pair", pair=new_pair()):
-        origin = load_cloud(ocloud, dtype=dtype, device=device)
-        reconst = load_cloud(pcloud, dtype=dtype, device=device)
+        origin, reconst = _load_pair(ocloud, pcloud, dtype, device,
+                                     options.peak)
         return evaluate_pair(origin, reconst, options, backend=backend)

@@ -6,9 +6,9 @@ Reference surface (open_pcc_metric/handler.py:4-43):
 Extensions: --color yuv, --color-hausdorff, --d2-mode {reference,pc_error},
 --peak/--resolution (pc_error's PSNR peak convention), --dtype, --backend,
 --trace-dir and --timings (as the JAX package's CLI: a torch.profiler
-trace, and the evaluation's wall time on stderr), and --device (default
-cuda). A CUDA device that is not there is an error: the CLI never falls
-back to the CPU on its own.
+trace, of the loads too, and the evaluation's wall time on stderr), and
+--device (default cuda). A CUDA device that is not there is an error: the
+CLI never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
@@ -55,8 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "padded rows and the pruned search above "
                         "(default: auto).")
     p.add_argument("--trace-dir", default=None,
-                   help="Write a torch.profiler trace of the evaluation to "
-                        "this directory.")
+                   help="Write a torch.profiler trace of the loads and "
+                        "the evaluation to this directory.")
     p.add_argument("--timings", action="store_true",
                    help="Print wall time and Mpoints/sec to stderr.")
     p.add_argument("--device", default="cuda",
@@ -81,7 +81,7 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         parser.error(f"--device {args.device}: no CUDA device is available "
                      "(pass --device cpu to evaluate on the CPU)")
 
-    from .evaluate import evaluate_pair, load_cloud
+    from .evaluate import _load_pair, evaluate_pair
     from .options import CalculateOptions
     from .utils.profiling import mpoints_per_sec, trace
 
@@ -93,14 +93,14 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         d2_mode=args.d2_mode,
         peak=args.peak,
     )
-    a = load_cloud(args.ocloud, dtype=args.dtype, device=device)
-    b = load_cloud(args.pcloud, dtype=args.dtype, device=device)
-    t0 = time.perf_counter()
     with trace(args.trace_dir):
+        a, b = _load_pair(args.ocloud, args.pcloud, args.dtype, device,
+                          args.peak)
+        t0 = time.perf_counter()
         result = evaluate_pair(a, b, options, backend=args.backend)
         if device.type == "cuda":  # the wall, not the launch queue
             torch.cuda.synchronize(device)
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     if args.timings:
         print(f"evaluated {a.n}+{b.n} points in {wall:.3f}s "
               f"({mpoints_per_sec(a.n + b.n, wall):.3f} Mpoints/s)",

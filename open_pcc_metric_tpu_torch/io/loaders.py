@@ -65,10 +65,25 @@ def read_point_cloud(path: typing.Union[str, os.PathLike]) -> RawCloud:
     raise ValueError(f"unsupported point-cloud format: {ext!r}")
 
 
+def _read_point_cloud_staged(
+        path: typing.Union[str, os.PathLike],
+        on_points: typing.Callable[[np.ndarray], None]) -> RawCloud:
+    """``read_point_cloud``, handing the (N, 3) float64 points to
+    ``on_points`` the moment they exist: a PLY's before its colours and
+    normals are assembled, any other format's once it is read. The points
+    are the array the returned ``RawCloud`` holds."""
+    path = os.fspath(path)
+    if os.path.splitext(path)[1].lower() == ".ply":
+        return _read_ply(path, on_points)
+    raw = read_point_cloud(path)
+    on_points(raw.points)
+    return raw
+
+
 # --------------------------------------------------------------------------- PLY
 
 
-def _read_ply(path: str) -> RawCloud:
+def _read_ply(path: str, on_points=None) -> RawCloud:
     with open(path, "rb") as f:
         header_lines = []
         line = f.readline()
@@ -130,7 +145,7 @@ def _read_ply(path: str) -> RawCloud:
         data = np.frombuffer(blob, dtype=np_dtype, count=count)
         names = [p[0] for p in scalar_props]
         types = {p[0]: p[1] for p in scalar_props}
-        return _assemble_ply_cloud(path, data, names, types)
+        return _assemble_ply_cloud(path, data, names, types, on_points)
 
     with open(path, "rb") as f:
         f.seek(body_offset)
@@ -168,11 +183,13 @@ def _read_ply(path: str) -> RawCloud:
 
     names = [p[0] for p in scalar_props]
     types = {p[0]: p[1] for p in scalar_props}
-    return _assemble_ply_cloud(path, data, names, types)
+    return _assemble_ply_cloud(path, data, names, types, on_points)
 
 
-def _assemble_ply_cloud(path, data, names, types) -> RawCloud:
-    """Columns -> RawCloud with the reference's colour conventions."""
+def _assemble_ply_cloud(path, data, names, types, on_points=None) -> RawCloud:
+    """Columns -> RawCloud with the reference's colour conventions;
+    ``on_points`` (where given) gets the points before the colours and
+    normals are stacked."""
 
     def col(name):
         return np.asarray(data[name], dtype=np.float64)
@@ -181,6 +198,8 @@ def _assemble_ply_cloud(path, data, names, types) -> RawCloud:
         if ax not in names:
             raise ValueError(f"{path}: vertex element missing '{ax}'")
     points = np.stack([col("x"), col("y"), col("z")], axis=1)
+    if on_points is not None:
+        on_points(points)
 
     colors = None
     for triple in _COLOR_TRIPLES:

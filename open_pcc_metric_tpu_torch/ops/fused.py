@@ -559,8 +559,13 @@ def boundary_stats(cloud, backend: str = "auto", *,
 def _prefetch_obb(a, peak):
     """Start the OBB peak on a thread, overlapped with the NN passes.
     Skipped when a user peak makes it irrelevant or the extent is cached;
-    returns a future or None."""
-    if peak is not None or a._obb_extent is not None:
+    returns a future or None: the cloud's pending extent where its hull
+    started as its file was read."""
+    if peak is not None:
+        return None
+    if isinstance(a._obb_extent, concurrent.futures.Future):
+        return a._obb_extent
+    if a._obb_extent is not None:
         return None
     pool = concurrent.futures.ThreadPoolExecutor(1)
     fut = pool.submit(bind(a.get_obb_extent))

@@ -141,8 +141,9 @@ def _count_readbacks(monkeypatch):
 
 
 def _expected(route):
-    names = {"pcc.pair", "pcc.load", "pcc.parse", "pcc.upload",
-             "pcc.evaluate", "pcc.readback", "pcc.obb_wait", "pcc.finalize"}
+    names = {"pcc.pair", "pcc.load", "pcc.parse", "pcc.obb.early",
+             "pcc.upload", "pcc.evaluate", "pcc.readback", "pcc.obb_wait",
+             "pcc.finalize"}
     return names | ROUTES[route]
 
 
@@ -211,13 +212,16 @@ def test_obb_spans_come_from_the_obb_thread(plys):
     main = threading.get_native_id()
     recs = profiling.records()
     (pair,) = [r for r in recs if r.name == "pcc.pair"]
-    (evaluate,) = [r for r in recs if r.name == "pcc.evaluate"]
+    # The hull starts while the origin's file is parsed, under the main
+    # thread's pcc.obb.early.
+    (early,) = [r for r in recs if r.name == "pcc.obb.early"]
+    assert early.thread == main and early.parent.name == "pcc.parse"
     obb = {r.name: r for r in recs if r.name.startswith("pcc.obb")
-           and r.name != "pcc.obb_wait"}
+           and r.name not in ("pcc.obb_wait", "pcc.obb.early")}
     assert set(obb) == {"pcc.obb", "pcc.obb.hull", "pcc.obb.project"}
     assert {r.thread for r in obb.values()} != {main}
     assert len({r.thread for r in obb.values()}) == 1
-    assert obb["pcc.obb"].parent is evaluate
+    assert obb["pcc.obb"].parent is early
     assert obb["pcc.obb.hull"].parent is obb["pcc.obb"]
     assert obb["pcc.obb.project"].parent is obb["pcc.obb"]
     assert {r.pair for r in obb.values()} == {pair.pair}
@@ -297,8 +301,11 @@ def test_cli_trace_dir_writes_the_obb_threads_spans(plys, tmp_path, capsys):
     hull = spans["pcc.obb.hull"]
     assert hull["tid"] != main and hull["pid"] == os.getpid()
     assert hull["args"]["parent"] == "pcc.obb"
+    # the hull starts while the origin is read and ends before the table
+    parse = min((e for e in events if e.get("ph") == "X"
+                 and e["name"] == "pcc.parse"), key=lambda e: e["ts"])
     ev = spans["pcc.evaluate"]
-    assert ev["ts"] <= hull["ts"] <= ev["ts"] + ev["dur"]
+    assert parse["ts"] <= hull["ts"] <= ev["ts"] + ev["dur"]
     assert any(e.get("ph") == "M" and e.get("tid") == hull["tid"]
                for e in events)
 
