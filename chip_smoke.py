@@ -25,6 +25,14 @@ Hausdorff):
   * the DAG path: ``evaluate_pair(engine="dag")`` on the 60k pair (K5) and
     on the 800k pair (K1 through ``nn_pruned_with_grids``), each table
     equal to the fused engine's;
+  * the brute 30-NN (K8, ``knn_brute_phases``): self searches at the
+    brute path's sizes (57344 and 14336 rows, the QP 18 and QP 30 frames
+    of an 800k origin, float and shuffled clouds) bit-identical to
+    ``knn_chunked``, the QP 18 frame's normals through K8 equal to the
+    plain path's, and the small-cloud estimation path: ``fused_evaluate``
+    on the 800k origin and its QP 18 frame without normals, fresh clouds
+    every call, one warm-up and RUNS timed calls with the plain versions
+    guarded, one K8 launch a call;
   * the select-prologue paths (``PCC_NN_PROLOGUE=select`` and
     ``PCC_KNN_PROLOGUE=select``, K2a and K2b): the 800k pair with normals
     and the 800k estimation path, in turns with the default prologue, and
@@ -147,7 +155,7 @@ It prints:
     on the ring's, K1's, K3's and K4's also on the fold's, K1's on the
     bucketed search's runs, error and
     times against the plain version, the bound from this run's shapes and
-    data, and for K5 and K2c one PyTorch library call's time), and last
+    data, and for K5, K8 and K2c one PyTorch library call's time), and last
   * ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed check raises, so the exit code is non-zero and the last line is
@@ -205,6 +213,8 @@ KERNELS = {
     "refine_nn_straight": "open_pcc_metric_tpu/ops/refine_pallas.py:77",
     "refine_knn_straight": "open_pcc_metric_tpu/ops/refine_pallas.py:209",
     "refine_nn_fused": "open_pcc_metric_tpu/ops/refine_pallas.py:341",
+    # K8 replaces no Pallas kernel: the JAX package's brute k-NN is XLA.
+    "knn_brute": "open_pcc_metric_tpu/ops/knn.py (plain XLA)",
 }
 # K1c has no caller in either package (grep: refine_nn_pallas_fused is
 # defined in refine_pallas.py and called nowhere else; refine_nn_fused is
@@ -1210,8 +1220,12 @@ def _guarded(modules_names):
 
 
 def _plain_names():
+    import importlib
+
     from open_pcc_metric_tpu_torch.ops import nn, refine, refine_adaptive, select
 
+    # the module: ops/__init__.py rebinds ``ops.knn`` to the function
+    knn_mod = importlib.import_module("open_pcc_metric_tpu_torch.ops.knn")
     return [(refine, "refine_nn_reference"), (refine, "refine_knn_reference"),
             (refine, "knn_moments_reference"), (nn, "nn_chunked"),
             (select, "select_bbox_reference"),
@@ -1220,12 +1234,14 @@ def _plain_names():
             (refine, "refine_nn_payload_reference"),
             (refine, "select_candidates_reference"),
             (refine, "refine_nn_straight_reference"),
-            (refine, "refine_knn_straight_reference")]
+            (refine, "refine_knn_straight_reference"),
+            (knn_mod, "knn_chunked")]
 
 
 def _wrappers():
     """Each kernel's wrapper, which counts its launches."""
     from open_pcc_metric_tpu_torch.ops import nn, refine, refine_adaptive, select
+    from open_pcc_metric_tpu_torch.ops.knn import knn
 
     return {"refine_nn": refine.refine_nn, "refine_knn": refine.refine_knn,
             "knn_moments": refine.knn_moments, "nn_brute": nn.nn_argmin,
@@ -1236,7 +1252,8 @@ def _wrappers():
             "select_candidates": refine.select_candidates,
             "refine_nn_straight": refine.refine_nn_straight,
             "refine_knn_straight": refine.refine_knn_straight,
-            "refine_nn_fused": refine.refine_nn_fused}
+            "refine_nn_fused": refine.refine_nn_fused,
+            "knn_brute": knn}
 
 
 @contextlib.contextmanager
@@ -1567,6 +1584,129 @@ def brute_phases(a, b, float_cloud):
         print("kernel phase " + json.dumps(rec), flush=True)
         records.append(rec)
     return records
+
+
+def knn_brute_phases(dev, seed=0):
+    """K8 against knn_chunked on the card, self searches at k = K: voxel
+    surfaces of 56000 and 14000 points (57344 and 14336 padded rows), the
+    QP 18 and QP 30 frames of an 800k origin (``datasets.degrade_gpcc_like``,
+    cell 2's brute-path frames), a jittered float cloud and a shuffled one
+    (neighbours met out of row order) at 57344 rows. Index and distance
+    must be bit-identical. Each phase gives K8's ms (CUDA events), the
+    plain version's, the bound (OPS_PER_PAIR a pair), registers and blocks
+    an SM; the 57344 and 14336 phases also time ``torch.cdist`` plus
+    ``torch.topk`` (``library_ms``: times only, topk orders ties
+    arbitrarily; a yardstick the port never calls). Then
+    ``estimate_normals_cloud`` on the QP 18 frame gives the plain path's
+    normals bit for bit, and ``small_estimation_path`` counts K8's launches
+    on the QP 18 pair. Returns (records, launches on that path)."""
+    import importlib
+
+    import torch
+
+    from open_pcc_metric_tpu_torch.cloud import Cloud
+    from open_pcc_metric_tpu_torch.datasets import (degrade_gpcc_like,
+                                                    voxel_surface)
+    from open_pcc_metric_tpu_torch.ops import normals, refine
+
+    knn_mod = importlib.import_module("open_pcc_metric_tpu_torch.ops.knn")
+    origin, colors, _ = voxel_surface(N_POINTS, seed=seed)
+    frames = {qp: degrade_gpcc_like(origin, colors, qp, seed=seed)[0]
+              for qp in (18, 30)}
+    rng = np.random.default_rng(seed)
+    surf = voxel_surface(56000, seed=seed)[0]
+    clouds = [
+        ("self 57344", surf),
+        ("self 14336", voxel_surface(14000, seed=seed)[0]),
+        ("qp18 frame self", frames[18]),
+        ("qp30 frame self", frames[30]),
+        ("float self 57344", surf + rng.uniform(-0.5, 0.5, surf.shape)),
+        ("shuffled self 57344", surf[rng.permutation(surf.shape[0])]),
+    ]
+    regs, per_sm = refine.occupancy("knn_brute")
+    records = []
+    for name, pts in clouds:
+        p = Cloud.from_numpy(pts, device=dev).points
+        n = p.shape[0]
+        (gi, gd), first_ms = _once_ms(lambda: knn_mod.knn(p, p, K))
+        (wi, wd), plain_ms = _once_ms(lambda: knn_mod.knn_chunked(p, p, K))
+        if not (_bit_equal(gi, wi) and _bit_equal(gd, wd)):
+            bad = int(((gi != wi) | (gd != wd)).any(dim=1).sum())
+            raise AssertionError(f"K8 phase {name}: {bad} rows differ from "
+                                 "knn_chunked")
+        bound_ms, bound_by = _bound(OPS_PER_PAIR * n * n, [p, p], [gi, gd])
+        rec = {
+            "phase": name, "rows": int(n), "k": K, "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: knn_mod.knn(p, p, K), 20),
+            "first_call_ms": first_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "registers": regs, "blocks_per_sm": per_sm,
+        }
+        if name in ("self 57344", "self 14336"):
+            rec["library_ms"] = _time_ms(
+                lambda: torch.topk(torch.cdist(p, p), K, dim=1,
+                                   largest=False), 3)
+        print("kernel phase " + json.dumps(rec), flush=True)
+        records.append(rec)
+        del p, gi, gd, wi, wd
+        torch.cuda.empty_cache()
+
+    got = normals.estimate_normals_cloud(Cloud.from_numpy(frames[18],
+                                                          device=dev))
+    fast = knn_mod.knn
+    knn_mod.knn = knn_mod.knn_chunked
+    try:
+        want = normals.estimate_normals_cloud(Cloud.from_numpy(frames[18],
+                                                               device=dev))
+    finally:
+        knn_mod.knn = fast
+    if not _bit_equal(got, want):
+        raise AssertionError("the QP 18 estimation's normals differ from "
+                             "the plain path's")
+    print("small-cloud estimation " + json.dumps({
+        "points": int(frames[18].shape[0]),
+        "normals_bit_identical_to_plain": True}), flush=True)
+    del got, want
+    torch.cuda.empty_cache()
+    return records, small_estimation_path(
+        (origin, colors), degrade_gpcc_like(origin, colors, 18, seed=seed),
+        dev)
+
+
+def small_estimation_path(origin, frame, dev):
+    """fused_evaluate on a pair of cell 2's shape, no normals on either
+    side: the 800k origin and its QP 18 frame (56k points, 57344 rows,
+    below the pruning threshold), ``origin`` and ``frame`` as (points,
+    colors). Every call builds both clouds afresh, as the CLI loads them,
+    so every call estimates both clouds' normals, the frame's 30-NN
+    through K8. One warm-up and RUNS timed calls (``_timed_runs``: every
+    plain version, ``knn_chunked`` included, guarded). Returns the K8
+    launches, one a call."""
+    from open_pcc_metric_tpu_torch.cloud import Cloud
+    from open_pcc_metric_tpu_torch.ops.fused import fused_evaluate
+
+    kwargs = dict(color_scheme="ycc", point_to_plane=True, d2_mode="pc_error")
+
+    def evaluate(o, f):
+        a = Cloud.from_numpy(o[0], colors=o[1], device=dev)
+        b = Cloud.from_numpy(f[0], colors=f[1], device=dev)
+        return fused_evaluate(a, b, **kwargs)
+
+    _, _, first_s, times, launches = _timed_runs(lambda: (origin, frame),
+                                                 evaluate)
+    if launches["knn_brute"] != RUNS + 1:
+        raise AssertionError(f"the QP 18 pair launched K8 "
+                             f"{launches['knn_brute']} times in {RUNS + 1} "
+                             "calls, not one a call")
+    if launches["refine_knn"] <= 0:
+        raise AssertionError("the QP 18 pair's origin took no pruned k-NN")
+    med = statistics.median(times)
+    print("small-cloud estimation path " + json.dumps({
+        "n_points": int(origin[0].shape[0] + frame[0].shape[0]),
+        "first_call_s": first_s, "times_s": times, "median_s": med,
+        "k8_launches": launches["knn_brute"],
+        "k3_launches": launches["refine_knn"]}), flush=True)
+    return launches["knn_brute"]
 
 
 def _timed_runs(make, evaluate, runs=RUNS):
@@ -3830,6 +3970,8 @@ def main() -> int:
                                     "800k pair (K1)": dag_big,
                                     "card": smi}), flush=True)
     torch.cuda.empty_cache()
+    k8_recs, k8_launches = knn_brute_phases(dev)
+    torch.cuda.empty_cache()
 
     # The 2M pair: K2a/K2b phases, the prologue A/B, the pair in turns and
     # a stage split per sweep.
@@ -3913,6 +4055,7 @@ def main() -> int:
         "refine_knn_straight": ("fixed estimation path 800k",
                                 fx_launches["refine_knn_straight"]),
         "refine_nn_fused": (None, 0),
+        "knn_brute": ("small-cloud estimation path", k8_launches),
     }
     phase_recs = {"refine_nn": records, "refine_knn": k3_recs,
                   "knn_moments": k4_recs, "nn_brute": k5_recs,
@@ -3921,7 +4064,7 @@ def main() -> int:
                   "select_candidates": k2c_recs,
                   "refine_nn_straight": k1b_recs,
                   "refine_knn_straight": k3b_recs,
-                  "refine_nn_fused": k1c_recs}
+                  "refine_nn_fused": k1c_recs, "knn_brute": k8_recs}
     kernels = []
     for name in KERNELS:
         full = _full_phase(phase_recs[name])

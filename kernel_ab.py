@@ -7,8 +7,8 @@ Each checkout is a directory holding ``open_pcc_metric_tpu_torch`` (for
 example a ``git archive`` of a commit, unpacked). The script makes the 800k
 and 2M pairs of ``bench.make_clouds`` once, then runs one worker process a
 turn in the order parent, change, change, parent, ``--rounds`` times. A
-worker imports the package of its own checkout only, builds its twelve
-kernels and times, with this checkout's ``chip_smoke.py`` helpers:
+worker imports the package of its own checkout only, builds the kernels
+it has of ``chip_smoke.KERNELS`` and times, with this checkout's ``chip_smoke.py`` helpers:
 
   * K2b (``count_bbox``) at the select prologue's shapes (800k a->b, b->a,
     self; 2M a->b, self) at the probe's threshold, eager (``ms``) and in a
@@ -68,8 +68,10 @@ def worker(tree: str, clouds: str) -> dict:
 
     cs = _smoke()
     dev = torch.device("cuda", 0)
+    names = [n for n in cs.KERNELS  # an older checkout lacks newer kernels
+             if os.path.exists(os.path.join(_build.CSRC_DIR, f"{n}.cu"))]
     libs = {name: lib.path
-            for name, lib in _build.load_many(list(cs.KERNELS)).items()}
+            for name, lib in _build.load_many(names).items()}
     data = np.load(clouds)
     grids = {k: Cloud.from_numpy(data[k], device=dev)
              for k in ("a", "b", "big_a", "big_b")}
@@ -186,6 +188,9 @@ def main() -> int:
             libs[side] = rec.pop("libraries")
             print(f"turn {turn} {side} " + json.dumps(rec), flush=True)
     for name in libs["change"]:
+        if name not in libs["parent"]:
+            print(f"sass {name}: new in the change", flush=True)
+            continue
         old, new = _sass(libs["parent"][name]), _sass(libs["change"][name])
         diff = [(x, y) for x, y in zip(old, new) if x != y][:2]
         same = "identical" if old == new else f"differs, first {diff}"

@@ -197,7 +197,8 @@ def get_neighbour_cloud(
     search cloud has them, float64 squared distances)``; the Cloud lives on
     the iterating cloud's device. n = 0 goes through the 1-NN engines
     (lowest original index on ties), n > 0 through the exact k-NN engines
-    with k = n + 1.
+    with k = n + 1. On CUDA tensors n <= 31: both k-NN kernels (K3 on the
+    pruned path, K8 below it) take k <= 32 and raise above it.
     """
     if n < 0:
         raise ValueError(f"n must be >= 0, got {n}")

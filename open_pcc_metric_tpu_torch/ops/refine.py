@@ -597,6 +597,7 @@ _ENTRIES = {
     "refine_knn": ("pcc_refine_knn", 10, 5),
     "knn_moments": ("pcc_knn_moments", 12, 3),
     "nn_brute": ("pcc_nn_brute", 4, 4),  # K5, wrapped by ops/nn.nn_argmin
+    "knn_brute": ("pcc_knn_brute", 4, 4),  # K8, wrapped by ops/knn.knn
     "select_bbox": ("pcc_select_bbox", 6, 4),  # K2a, ops/select.select_bbox
     "count_bbox": ("pcc_count_bbox", 6, 4, 1),  # K2b, ops/select.count_bbox
     "select_candidates": ("pcc_select_candidates", 2, 4),
@@ -993,7 +994,7 @@ def refine_knn_straight(
 def occupancy(name: str) -> typing.Tuple[int, int]:
     """(registers a thread, resident blocks an SM) of the kernel ``name``
     (``refine_knn`` at one block a tile, ``refine_knn_straight``,
-    ``knn_moments``, ``nn_brute``, ``refine_nn_payload``,
+    ``knn_moments``, ``nn_brute``, ``knn_brute``, ``refine_nn_payload``,
     ``refine_nn_straight``, ``refine_nn_fused``, ``adaptive_refine`` or
     ``count_bbox``) on the current CUDA device, from the CUDA runtime."""
     from . import _build
