@@ -3080,12 +3080,13 @@ def ring_path(origin, reconst, dev, smi):
     label: launches}."""
     import torch
 
-    from open_pcc_metric_tpu_torch.ops.fused import _ladder, pair_stats
+    from open_pcc_metric_tpu_torch.ops.fused import pair_stats
     from open_pcc_metric_tpu_torch.ops.grid import CHUNK
     from open_pcc_metric_tpu_torch.ops.nn_pruned import nn_pruned_sorted
     from open_pcc_metric_tpu_torch.parallel import sharded
     from open_pcc_metric_tpu_torch.parallel.sharded import (
         make_mesh, pack_sorted_frames, sharded_pair_stats_pruned_auto)
+    from open_pcc_metric_tpu_torch.utils.cache import climb
 
     pad = _ring_pad(origin, reconst)
     a, b = _ring_cloud(origin, pad, dev), _ring_cloud(reconst, pad, dev)
@@ -3102,8 +3103,10 @@ def ring_path(origin, reconst, dev, smi):
         r = nn_pruned_sorted(ga, gb, a.n, cap=cap, fallback_tiles=ft)
         return r, bool(r[2])
 
-    single, _ = _ladder(pad // CHUNK, single_run, CAP, FALLBACK)
-    (want_d, want_i, _), _ = _ladder(pad // CHUNK, sweep_run, CAP, FALLBACK)
+    n_chunks = pad // CHUNK
+    single, _ = climb(single_run, (CAP, FALLBACK), n_chunks, n_chunks)
+    (want_d, want_i, _), _ = climb(sweep_run, (CAP, FALLBACK), n_chunks,
+                                   n_chunks)
     pay_b = torch.cat([packed["b_col_s"][0], packed["b_nrm_s"][0],
                        packed["b_s"][0]], dim=1)
     n_total = a.n + b.n
@@ -3392,7 +3395,7 @@ def cold_fold_path(origin, reconst, dev, smi):
     import torch
 
     from open_pcc_metric_tpu_torch.cloud import Cloud
-    from open_pcc_metric_tpu_torch.ops import fused, knn_pruned
+    from open_pcc_metric_tpu_torch.ops import fused, knn_pruned, obb
 
     def make(data):
         c = Cloud.from_numpy(data[0], colors=data[1], device=dev)
@@ -3401,7 +3404,7 @@ def cold_fold_path(origin, reconst, dev, smi):
 
     real_app, real_prog = fused._cold_fold_applicable, fused.cold_pair_program
     real_knn = knn_pruned.knn_pruned_sorted
-    real_to_host, real_obb = fused._to_host, Cloud.get_obb_extent
+    real_to_host, real_obb = fused._to_host, obb.minimal_obb_extent
     state = {"sites": None, "in_prog": [], "est": [], "knn": None,
              "readback": None, "obb_done": None}
 
@@ -3412,9 +3415,9 @@ def cold_fold_path(origin, reconst, dev, smi):
             state["readback"] = time.perf_counter()
         return out
 
-    def obb_spy(cloud):
-        # on the prefetch thread; timed before its future resolves
-        out = real_obb(cloud)
+    def obb_spy(*args, **kw):
+        # on the OBB thread; timed before its future resolves
+        out = real_obb(*args, **kw)
         state["obb_done"] = time.perf_counter()
         return out
 
@@ -3439,7 +3442,7 @@ def cold_fold_path(origin, reconst, dev, smi):
         ("fold", "stepwise") if i % 2 == 0 else ("stepwise", "fold")))
     fused.cold_pair_program = prog_spy
     knn_pruned.knn_pruned_sorted = knn_spy
-    fused._to_host, Cloud.get_obb_extent = to_host_spy, obb_spy
+    fused._to_host, obb.minimal_obb_extent = to_host_spy, obb_spy
     restore = _guarded(_plain_names())
     try:
         for mode in order:
@@ -3499,7 +3502,7 @@ def cold_fold_path(origin, reconst, dev, smi):
         fused._cold_fold_applicable = real_app
         fused.cold_pair_program = real_prog
         knn_pruned.knn_pruned_sorted = real_knn
-        fused._to_host, Cloud.get_obb_extent = real_to_host, real_obb
+        fused._to_host, obb.minimal_obb_extent = real_to_host, real_obb
         restore()
     fold, step = modes["fold"], modes["stepwise"]
     worst = max(_table_rel(t, step["tables"][0])

@@ -300,8 +300,8 @@ class Cloud:
     def get_obb_extent(self) -> np.ndarray:
         """Cached minimal-OBB extent of this cloud (projection sweep on its
         device, hull and refinement on the host). A pending extent (a
-        future: the hull ``evaluate`` starts while the file is read) is
-        waited for; one whose hull raised raises here at every call."""
+        future: a hull ``evaluate`` or ``fused_evaluate`` started) is waited
+        for here; one whose hull raised raises here at every call."""
         if isinstance(self._obb_extent, concurrent.futures.Future):
             self._obb_extent = self._obb_extent.result()
         if self._obb_extent is None:

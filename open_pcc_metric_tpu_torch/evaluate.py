@@ -7,7 +7,6 @@ engine or the lazy metric DAG (``CloudPair -> MetricCalculator``).
 """
 from __future__ import annotations
 
-import concurrent.futures
 import typing
 
 import numpy as np
@@ -20,7 +19,7 @@ from .cloud_pair import CloudPair
 from .io import read_point_cloud
 from .io.loaders import _read_point_cloud_staged
 from .options import CalculateOptions, transform_options
-from .utils.profiling import bind, new_pair, span
+from .utils.profiling import new_pair, span
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -69,7 +68,7 @@ def _load_pair(
     points are parsed (before its colours, normals and upload, and before
     the other file is read), on the array ``Cloud.valid_points`` returns;
     the origin holds it as its pending OBB extent, which the evaluation
-    waits for."""
+    waits for (``obb.start_obb_extent``)."""
     from .ops import obb
 
     hull = None
@@ -81,12 +80,7 @@ def _load_pair(
         if dev.type == "cuda" and dev.index is None:  # the cloud's card
             dev = torch.device("cuda", torch.cuda.current_device())
         with span("pcc.obb.early"):
-            pool = concurrent.futures.ThreadPoolExecutor(1)
-            # minimal_obb_extent is looked up on the thread, at the call,
-            # as Cloud.get_obb_extent looks it up.
-            hull = pool.submit(bind(
-                lambda: obb.minimal_obb_extent(points, device=dev)))
-            pool.shutdown(wait=False)
+            hull = obb.start_obb_extent(lambda: points, dev)
 
     read = read_point_cloud if peak is not None else (
         lambda path: _read_point_cloud_staged(path, start))

@@ -27,20 +27,19 @@ back once; on any certificate overflow the call reruns stepwise. Every
 other pair runs stepwise: ``Cloud.get_normals`` and ``Cloud.get_grid``
 with their own ladders, then ``pair_stats`` and one readback an attempt.
 
-Knobs pick the pruned sweeps' schedules, read at each public call
-(``fused_evaluate``, ``pair_stats``, ``boundary_stats``), with the same
-tables either way: ``PCC_NN_SCHED`` (the counted or the fixed-cap stage
-1), ``PCC_REFINE_IMPL=adaptive`` (or ``PCC_NN_EXPANDED=1``) on pairs of
-clouds that pass ``Cloud.mxu_exact`` (``nn_pruned`` module docstring), and
-``PCC_PAYLOAD_KERNEL=1``, under which the two cross sweeps of a float32
-pair that needs colours or normals return the neighbours' points, colours
-and normals from K6 instead of a gather. ``PCC_NN_CAP`` and ``PCC_NN_FT``
-set the ladder's base rung when the caller gives none.
+Knobs pick the pruned sweeps' schedules (``nn_pruned`` module docstring)
+with the same tables either way; under ``PCC_PAYLOAD_KERNEL=1`` the two
+cross sweeps of a float32 pair that needs colours or normals return the
+neighbours' points, colours and normals from K6 instead of a gather. Each
+public entry (``fused_evaluate``, ``pair_stats``, ``boundary_stats``,
+``cold_pair_program``) resolves them and the ladder's base rung
+(``PCC_NN_CAP``, ``PCC_NN_FT``) once, at its call, into one ``NnSchedule``
+(``resolve_nn_schedule``); the layers below take that value, and every
+ladder is ``utils.cache.climb``.
 """
 from __future__ import annotations
 
 import concurrent.futures
-import os
 import typing
 
 import numpy as np
@@ -49,37 +48,15 @@ import torch
 from . import nn as nn_ops
 from .color import get_color_peak, transform_colors
 from .grid import CHUNK
-from .nn_pruned import (
-    NN_PROLOGUE_ENV, nn_pruned_sorted, nn_pruned_sorted_payload,
-    resolve_nn_sched, resolve_prologue, resolve_refine_impl)
+from . import obb
+# nn_base_rung and resolve_payload stay importable from this module.
+from .nn_pruned import (  # noqa: F401
+    NnSchedule, nn_base_rung, nn_pruned_sorted, nn_pruned_sorted_payload,
+    resolve_nn_schedule, resolve_payload)
 from .refine import PAYLOAD_F
 from .._layout_args import check_pack
-from ..utils.cache import ladder_lookup, ladder_store, next_rung
-from ..utils.profiling import bind, span, spanned
-
-PAYLOAD_ENV = "PCC_PAYLOAD_KERNEL"
-
-
-def resolve_payload(payload: typing.Optional[bool] = None) -> bool:
-    """Whether the cross sweeps may take the payload schedule (K6):
-    ``payload`` when given, else ``PCC_PAYLOAD_KERNEL == "1"`` read at this
-    call."""
-    if payload is None:
-        return os.environ.get(PAYLOAD_ENV) == "1"
-    return bool(payload)
-
-
-NN_CAP_ENV, NN_FT_ENV = "PCC_NN_CAP", "PCC_NN_FT"
-
-
-def nn_base_rung(cap: typing.Optional[int] = None,
-                 fallback: typing.Optional[int] = None):
-    """The pruned sweeps' base rung: each of ``cap`` and ``fallback`` when
-    given, else ``PCC_NN_CAP`` / ``PCC_NN_FT`` read at this call (32 and
-    256 when unset), as the JAX package's ``fused_evaluate`` reads them."""
-    return (int(os.environ.get(NN_CAP_ENV, "32")) if cap is None else cap,
-            int(os.environ.get(NN_FT_ENV, "256")) if fallback is None
-            else fallback)
+from ..utils.cache import climb, ladder_lookup, ladder_store
+from ..utils.profiling import span, spanned
 
 
 def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -184,21 +161,29 @@ def _sorted_rows(x, perm, cached):
     return x[perm.long()]
 
 
+def _sweep_kw(nn: NnSchedule, mxu_ok: bool) -> typing.Dict[str, typing.Any]:
+    """``nn_pruned_sorted``'s keywords for the resolved schedule ``nn``:
+    every knob given, so the search reads none from the environment."""
+    return dict(cap=nn.cap, fallback_tiles=nn.fallback, p1=nn.p1,
+                prologue=nn.prologue, refine_impl=nn.refine_impl,
+                mxu_ok=mxu_ok, sched=nn.sched)
+
+
 def _pair_stats_pruned(
     a_pts, b_pts, n_a, n_b, a_col, b_col, a_nrm, b_nrm, ga, gb,
     a_col_sorted=None, b_col_sorted=None, a_nrm_sorted=None,
     b_nrm_sorted=None,
-    *, color_scheme, point_to_plane, d2_mode, with_boundary,
-    prune_cap, prune_fallback, prologue, refine_impl, mxu_ok, payload, sched,
+    *, color_scheme, point_to_plane, d2_mode, with_boundary, nn: NnSchedule,
+    mxu_ok,
 ) -> typing.Dict[str, typing.Any]:
     """Device reductions for one pair, evaluated in Morton-sorted space.
 
     Sorted-row validity is ``row < n`` (sentinels sort last), neighbour
     indices come back in ORIGINAL order (so colour/normal/point gathers hit
     the original arrays), and only the reference-D2 positional pairing and
-    the query-side colours need a perm gather. Every sweep runs
-    ``prologue``, ``sched`` and ``refine_impl`` (gated by ``mxu_ok``),
-    except that with ``payload`` the cross sweeps of a float32 pair that
+    the query-side colours need a perm gather. Every sweep runs the
+    schedule ``nn`` at its rung (``refine_impl`` gated by ``mxu_ok``),
+    except that with ``nn.payload`` the cross sweeps of a float32 pair that
     needs colours or normals run ``nn_pruned_sorted_payload`` (K6), as in
     the JAX package.
     """
@@ -206,9 +191,8 @@ def _pair_stats_pruned(
     dev = a_pts.device
     masks = (torch.arange(a_pts.shape[0], device=dev) < n_a,
              torch.arange(b_pts.shape[0], device=dev) < n_b)
-    kw = dict(cap=prune_cap, fallback_tiles=prune_fallback, prologue=prologue,
-              refine_impl=refine_impl, mxu_ok=mxu_ok, sched=sched)
-    if (payload and (color_scheme is not None or point_to_plane)
+    kw = _sweep_kw(nn, mxu_ok)
+    if (nn.payload and (color_scheme is not None or point_to_plane)
             and a_pts.dtype == torch.float32):
 
         def packs(g, pts, col, nrm, col_s, nrm_s):
@@ -220,7 +204,7 @@ def _pair_stats_pruned(
             return _pack_payload(g.points, col_s, nrm_s), _pack_payload(
                 pts, col, nrm)
 
-        pkw = dict(cap=prune_cap, fallback_tiles=prune_fallback)
+        pkw = dict(cap=nn.cap, fallback_tiles=nn.fallback)
         d0, i0, p0, ov0 = nn_pruned_sorted_payload(
             ga, gb, *packs(gb, b_pts, b_col, b_nrm, b_col_sorted,
                            b_nrm_sorted), n_a, **pkw)
@@ -340,11 +324,10 @@ def pair_stats(
     sorted colours; the pruned search adds ``nn_overflow``, which reports
     certificate overflow — the caller must re-run with a larger
     prune_cap/prune_fallback (by default ``nn_base_rung``'s).
-    ``prologue`` and ``sched`` are the pruned sweeps' (``nn_pruned``), by
-    default ``PCC_NN_PROLOGUE`` and ``PCC_NN_SCHED`` read at this call;
-    ``refine_impl`` and ``payload`` (module docstring) default to
-    ``resolve_refine_impl`` and ``resolve_payload`` at this call, and
-    ``mxu_ok`` asserts that both clouds pass ``Cloud.mxu_exact``. The
+    ``prologue``, ``sched``, ``refine_impl`` and ``payload`` are the pruned
+    sweeps' (module docstring); with the rung, each not given is read at
+    this call (``resolve_nn_schedule``). ``mxu_ok`` asserts that both
+    clouds pass ``Cloud.mxu_exact``. The
     default ``backend`` is the JAX package's, "jnp", the brute force here.
     ``qt8_a``/``qt8_b`` are the JAX package's query packs, checked and
     unused (``_layout_args``)."""
@@ -358,21 +341,18 @@ def pair_stats(
             d2_mode=d2_mode, with_boundary=with_boundary)
     from .grid import build_grid
 
+    nn = resolve_nn_schedule(
+        sched=sched, prologue=prologue, refine_impl=refine_impl,
+        payload=payload, cap=prune_cap, fallback=prune_fallback)
     if ga is None:
         ga = build_grid(a_pts, n_a)
     if gb is None:
         gb = build_grid(b_pts, n_b)
-    prune_cap, prune_fallback = nn_base_rung(prune_cap, prune_fallback)
     return _pair_stats_pruned(
         a_pts, b_pts, n_a, n_b, a_col, b_col, a_nrm, b_nrm, ga, gb,
         a_col_sorted, b_col_sorted, a_nrm_sorted, b_nrm_sorted,
         color_scheme=color_scheme, point_to_plane=point_to_plane,
-        d2_mode=d2_mode, with_boundary=with_boundary,
-        prune_cap=prune_cap, prune_fallback=prune_fallback,
-        prologue=resolve_prologue(prologue, NN_PROLOGUE_ENV),
-        refine_impl=resolve_refine_impl(refine_impl), mxu_ok=mxu_ok,
-        payload=resolve_payload(payload), sched=resolve_nn_sched(sched),
-    )
+        d2_mode=d2_mode, with_boundary=with_boundary, nn=nn, mxu_ok=mxu_ok)
 
 
 def _to_host(stats: typing.Dict[str, typing.Any]) -> typing.Dict[str, np.ndarray]:
@@ -497,17 +477,6 @@ def _mxu_ok(a, b=None) -> bool:
                for c in (a, b) if c is not None)
 
 
-def _ladder(n_chunks: int, run, cap: int, fallback: int):
-    """Escalate (cap, fallback) until ``run`` certifies; returns its result."""
-    while True:
-        result, overflow = run(cap, fallback)
-        # Exact iff certified, or stage 1 refined every chunk (at which
-        # point the certificate cannot fail).
-        if not overflow or cap >= n_chunks:
-            return result, (cap, fallback)
-        cap, fallback = next_rung(cap, fallback, n_chunks, n_chunks)
-
-
 def boundary_stats(cloud, backend: str = "auto", *,
                    prune_cap: typing.Optional[int] = None,
                    prune_fallback: typing.Optional[int] = None,
@@ -518,11 +487,10 @@ def boundary_stats(cloud, backend: str = "auto", *,
     0-d tensors). They depend only on the cloud (reference:
     cloud_pair.py:108-109), so a sweep sharing one reference cloud computes
     the priciest NN pass once. ``backend`` as ``nn.resolve_backend`` reads
-    it; the pruned pass escalates from (prune_cap, prune_fallback), by
-    default ``nn_base_rung``'s, with ``prologue``, ``sched`` and
-    ``refine_impl``, by default ``PCC_NN_PROLOGUE``, ``PCC_NN_SCHED`` and
-    ``resolve_refine_impl`` read at this call (the last gated by the
-    cloud's ``mxu_exact``)."""
+    it; the pruned pass escalates from (prune_cap, prune_fallback) with
+    ``prologue``, ``sched`` and ``refine_impl`` (the last gated by the
+    cloud's ``mxu_exact``), each not given read at this call
+    (``resolve_nn_schedule``)."""
     if cloud._boundary_stats is not None:
         return cloud._boundary_stats
     if int(cloud.n) < 2:
@@ -534,22 +502,21 @@ def boundary_stats(cloud, backend: str = "auto", *,
         _, d = nn_ops.nn_argmin(cloud.points, cloud.points, exclude_self=True)
     else:
         g = cloud.get_grid()
-        prologue = resolve_prologue(prologue, NN_PROLOGUE_ENV)
-        refine_impl = resolve_refine_impl(refine_impl)
-        sched = resolve_nn_sched(sched)
-        mxu_ok = refine_impl != "default" and _mxu_ok(cloud)
+        nn = resolve_nn_schedule(
+            sched=sched, prologue=prologue, refine_impl=refine_impl,
+            payload=False, cap=prune_cap, fallback=prune_fallback)
+        mxu_ok = nn.refine_impl != "default" and _mxu_ok(cloud)
 
         def run(cap, fallback):
             d, _, overflow = nn_pruned_sorted(
-                g, g, cloud.n, exclude_self=True, cap=cap,
-                fallback_tiles=fallback, prologue=prologue,
-                refine_impl=refine_impl, mxu_ok=mxu_ok, sched=sched)
+                g, g, cloud.n, exclude_self=True, **_sweep_kw(
+                    nn._replace(cap=cap, fallback=fallback), mxu_ok))
             with span("pcc.readback"):
                 overflow = bool(overflow)
             return d, overflow
 
-        d, _ = _ladder(cloud.padded_size // CHUNK, run,
-                       *nn_base_rung(prune_cap, prune_fallback))
+        ncb = cloud.padded_size // CHUNK
+        d, _ = climb(run, (nn.cap, nn.fallback), ncb, ncb)
     mask = cloud.valid_mask()
     sqrt_d = torch.sqrt(torch.clamp(d, min=0.0))
     cloud._boundary_stats = (_masked_min(sqrt_d, mask), _masked_max(sqrt_d, mask))
@@ -557,20 +524,16 @@ def boundary_stats(cloud, backend: str = "auto", *,
 
 
 def _prefetch_obb(a, peak):
-    """Start the OBB peak on a thread, overlapped with the NN passes.
-    Skipped when a user peak makes it irrelevant or the extent is cached;
-    returns a future or None: the cloud's pending extent where its hull
-    started as its file was read."""
+    """The origin's pending OBB extent, overlapped with the NN passes (None
+    under a user peak or with the extent cached): the hull its file's read
+    started, else one started now (``obb.start_obb_extent``) and held as
+    its pending extent, which ``Cloud.get_obb_extent`` resolves."""
     if peak is not None:
         return None
-    if isinstance(a._obb_extent, concurrent.futures.Future):
-        return a._obb_extent
-    if a._obb_extent is not None:
-        return None
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    fut = pool.submit(bind(a.get_obb_extent))
-    pool.shutdown(wait=False)
-    return fut
+    if a._obb_extent is None:
+        a._obb_extent = obb.start_obb_extent(a.valid_points, a.device)
+    pending = isinstance(a._obb_extent, concurrent.futures.Future)
+    return a._obb_extent if pending else None
 
 
 # Remembers the certificate-passing (cap, fallback) rung per problem shape
@@ -581,26 +544,23 @@ _LADDER_MEMO: dict = {}
 
 
 def _sweep_memo_key(a, b, color_scheme, point_to_plane, d2_mode, backend,
-                    refine_impl, payload):
+                    nn: NnSchedule):
     """The sweeps' ladder-memo key, one for the fold and the stepwise path
     so both share rungs. The schedule is part of it: a rung that certified
     under one must not seed another's first call."""
     return (a.padded_size, b.padded_size, str(a.points.dtype), color_scheme,
-            point_to_plane, d2_mode, backend, refine_impl, payload)
+            point_to_plane, d2_mode, backend, nn.refine_impl, nn.payload)
 
 
 def _finish(host, a, obb_future, peak, color_scheme, point_to_plane):
     """The table from the host stats: the OBB peak (a user ``peak``, as
-    pc_error's --resolution, skips the OBB entirely), then
-    ``finalize_stats``."""
-    if peak is not None:
-        extent_peak = float(peak)
-    elif obb_future is not None:
+    pc_error's --resolution, skips the OBB entirely, and ``obb_future`` is
+    None), then ``finalize_stats``."""
+    if obb_future is not None:
         with span("pcc.obb_wait"):
-            extent = obb_future.result()
-        extent_peak = float(np.max(extent))
-    else:
-        extent_peak = float(np.max(a.get_obb_extent()))
+            obb_future.result()
+    extent_peak = (float(peak) if peak is not None
+                   else float(np.max(a.get_obb_extent())))
     return finalize_stats(host, extent_peak, color_scheme=color_scheme,
                           point_to_plane=point_to_plane, peak=peak)
 
@@ -633,7 +593,8 @@ def cold_pair_program(
 
     Returns ``(stats, cacheables)``, the latter the per-cloud state for the
     caller to cache. ``prologue``, ``refine_impl``, ``payload`` and
-    ``sched`` are the sweeps' (``pair_stats``), read at this call when None.
+    ``sched`` are the sweeps' (``pair_stats``); each not given, and
+    ``PCC_NN_P1``, is read at this call (``resolve_nn_schedule``).
     ``qt8_a``/``qt8_b`` are the JAX package's query packs, checked and
     unused (``_layout_args``).
     """
@@ -642,6 +603,9 @@ def cold_pair_program(
 
     check_pack("qt8_a", qt8_a)
     check_pack("qt8_b", qt8_b)
+    nn = resolve_nn_schedule(
+        sched=sched, prologue=prologue, refine_impl=refine_impl,
+        payload=payload, cap=prune_cap, fallback=prune_fallback)
     if ga is None:
         ga = build_grid(a_pts, n_a)
     if gb is None:
@@ -665,11 +629,8 @@ def cold_pair_program(
         a_pts, b_pts, n_a, n_b, a_col, b_col, a_nrm, b_nrm, ga, gb,
         a_col_s, b_col_s, a_nrm_s, b_nrm_s,
         color_scheme=color_scheme, point_to_plane=point_to_plane,
-        d2_mode=d2_mode, with_boundary=boundary_a is None,
-        prune_cap=prune_cap, prune_fallback=prune_fallback,
-        prologue=resolve_prologue(prologue, NN_PROLOGUE_ENV),
-        refine_impl=resolve_refine_impl(refine_impl), mxu_ok=mxu_ok,
-        payload=resolve_payload(payload), sched=resolve_nn_sched(sched))
+        d2_mode=d2_mode, with_boundary=boundary_a is None, nn=nn,
+        mxu_ok=mxu_ok)
     if boundary_a is not None:
         stats["self_min"], stats["self_max"] = boundary_a
     for ov in est_overflows:
@@ -718,12 +679,11 @@ def _cold_fold_applicable(a, b, color_scheme, point_to_plane, backend) -> bool:
 
 
 def _fused_evaluate_cold(a, b, color_scheme, point_to_plane, d2_mode, peak,
-                         *, prune_cap, prune_fallback, prologue, refine_impl,
-                         payload, sched):
-    """``fused_evaluate`` through the fold: ``cold_pair_program`` and one
-    readback (``_to_host``), with the OBB on a thread beside it. Returns
-    None when a certificate overflowed (the caller reruns stepwise, with
-    its ladders), after the OBB thread has finished.
+                         nn: NnSchedule, mxu_ok: bool):
+    """``fused_evaluate`` through the fold on the resolved schedule ``nn``:
+    ``cold_pair_program`` and one readback (``_to_host``), with the OBB on
+    a thread beside it. Returns None when a certificate overflowed (the
+    caller reruns stepwise, with its ladders; the OBB stays pending).
 
     The rung rules are the JAX package's: the sweeps' rung from the fused
     ladder memo (the stepwise path's key, so both share rungs); both
@@ -737,11 +697,10 @@ def _fused_evaluate_cold(a, b, color_scheme, point_to_plane, d2_mode, peak,
     from .normals import _LADDER_MEMO as _EST_MEMO
 
     obb_future = _prefetch_obb(a, peak)
-    mxu_ok = refine_impl != "default" and _mxu_ok(a, b)
     memo_key = _sweep_memo_key(a, b, color_scheme, point_to_plane, d2_mode,
-                               "pruned", refine_impl, payload)
+                               "pruned", nn)
     cap, fallback = ladder_lookup(_LADDER_MEMO, memo_key,
-                                  (prune_cap, prune_fallback))
+                                  (nn.cap, nn.fallback))
 
     def nrm_state(c):
         # Only CACHED sorted normals are passed in: the sweeps read them on
@@ -769,13 +728,10 @@ def _fused_evaluate_cold(a, b, color_scheme, point_to_plane, d2_mode, peak,
         point_to_plane=point_to_plane, d2_mode=d2_mode, est_a=est_a,
         est_b=est_b, k=DEFAULT_KNN, knn_cap=kcap or 64, knn_ft=kft or 256,
         prune_cap=cap, prune_fallback=fallback, mxu_ok=mxu_ok,
-        knn_flags=kflags, prologue=prologue, refine_impl=refine_impl,
-        payload=payload, sched=sched)
+        knn_flags=kflags, prologue=nn.prologue, refine_impl=nn.refine_impl,
+        payload=nn.payload, sched=nn.sched)
     host = _to_host(stats)  # the one round trip: results and overflow
     if bool(host["nn_overflow"]):
-        if obb_future is not None:
-            with span("pcc.obb_wait"):
-                obb_future.result()  # let it finish caching before stepwise
         return None
     ladder_store(_LADDER_MEMO, memo_key, (cap, fallback))
     if est_a and rung_a == (kcap, kft):
@@ -810,23 +766,13 @@ def fused_evaluate(
     below ``nn.PRUNE_THRESHOLD`` padded rows and the pruned search at or
     above it; "brute" (aliases "pallas", "jnp") and "pruned" force one.
     ``prune_cap``/``prune_fallback`` are the base rung of the pruned
-    search's certificate ladder (``PCC_NN_CAP`` / ``PCC_NN_FT`` read at
-    this call when not given, ``nn_base_rung``); an overflowing rung
-    escalates through ``next_rung`` (one synchronous overflow readback per
-    attempt). The pruned sweeps' prologue is ``PCC_NN_PROLOGUE`` and the
-    estimation's ``PCC_KNN_PROLOGUE``, both read at this call ("select"
-    selects the fused select prologue, K2a/K2b), and so are the stage-1
-    schedules (``PCC_NN_SCHED``, ``PCC_KNN_SCHED``) and the sweeps' refine
-    schedules (``PCC_REFINE_IMPL``, ``PCC_NN_EXPANDED``,
-    ``PCC_PAYLOAD_KERNEL``; module docstring). The ladder remembers its rung
-    per shape and refine schedule (both stage-1 schedules overflow on the
-    same rungs).
+    search's certificate ladder; an overflowing rung escalates through
+    ``next_rung`` (one synchronous overflow readback per attempt), and the
+    ladder remembers its rung per shape and refine schedule. The sweeps'
+    schedule and the rung not given are read once, at this call (module
+    docstring); the estimation's (``PCC_KNN_*``) at its own calls.
     """
-    prologue = resolve_prologue(None, NN_PROLOGUE_ENV)
-    refine_impl = resolve_refine_impl(None)
-    payload = resolve_payload(None)
-    sched = resolve_nn_sched(None)
-    prune_cap, prune_fallback = nn_base_rung(prune_cap, prune_fallback)
+    nn = resolve_nn_schedule(cap=prune_cap, fallback=prune_fallback)
     backend = nn_ops.resolve_backend(backend,
                                      max(a.padded_size, b.padded_size))
     if a.device != b.device or a.points.dtype != b.points.dtype:
@@ -836,12 +782,11 @@ def fused_evaluate(
             "reference D2 mode requires n_origin <= n_reconst "
             f"(got {a.n} > {b.n}); use d2_mode='pc_error'"
         )
+    mxu_ok = (backend == "pruned" and nn.refine_impl != "default"
+              and _mxu_ok(a, b))
     if _cold_fold_applicable(a, b, color_scheme, point_to_plane, backend):
         out = _fused_evaluate_cold(
-            a, b, color_scheme, point_to_plane, d2_mode, peak,
-            prune_cap=prune_cap, prune_fallback=prune_fallback,
-            prologue=prologue, refine_impl=refine_impl, payload=payload,
-            sched=sched)
+            a, b, color_scheme, point_to_plane, d2_mode, peak, nn, mxu_ok)
         if out is not None:
             return out
         # A certificate overflowed in the fold: the stepwise path below
@@ -864,24 +809,25 @@ def fused_evaluate(
                   d2_mode=d2_mode, with_boundary=with_boundary)
 
     ga = gb = a_col_sorted = b_col_sorted = a_nrm_sorted = b_nrm_sorted = None
-    mxu_ok = False
     if backend == "pruned":
         ga, gb = a.get_grid(), b.get_grid()
         if color_scheme is not None:
             a_col_sorted = _sorted_colors(a)
             b_col_sorted = _sorted_colors(b)
-        if point_to_plane and payload:
+        if point_to_plane and nn.payload:
             a_nrm_sorted = _sorted_normals(a, a_nrm)
             b_nrm_sorted = _sorted_normals(b, b_nrm)
-        mxu_ok = refine_impl != "default" and _mxu_ok(a, b)
 
     def run(cap=None, fallback=None):
-        stats = pair_stats(
-            a.points, b.points, a.n, b.n, a.colors, b.colors,
-            a_nrm, b_nrm, ga, gb, a_col_sorted, b_col_sorted, a_nrm_sorted,
-            b_nrm_sorted, backend=backend, prune_cap=cap,
-            prune_fallback=fallback, mxu_ok=mxu_ok, prologue=prologue,
-            refine_impl=refine_impl, payload=payload, sched=sched, **kwargs)
+        args = (a.points, b.points, a.n, b.n, a.colors, b.colors, a_nrm,
+                b_nrm)
+        if backend == "brute":
+            stats = _pair_stats_brute(*args, **kwargs)
+        else:
+            stats = _pair_stats_pruned(
+                *args, ga, gb, a_col_sorted, b_col_sorted, a_nrm_sorted,
+                b_nrm_sorted, nn=nn._replace(cap=cap, fallback=fallback),
+                mxu_ok=mxu_ok, **kwargs)
         if not with_boundary:
             stats["self_min"], stats["self_max"] = a._boundary_stats
         host = _to_host(stats)  # one round-trip: results + overflow
@@ -891,12 +837,10 @@ def fused_evaluate(
         (stats, host), _ = run()
     else:
         memo_key = _sweep_memo_key(a, b, color_scheme, point_to_plane,
-                                   d2_mode, backend, refine_impl, payload)
-        cap, fallback = ladder_lookup(_LADDER_MEMO, memo_key,
-                                      (prune_cap, prune_fallback))
-        (stats, host), rung = _ladder(
-            max(a.padded_size, b.padded_size) // CHUNK, run, cap, fallback)
-        ladder_store(_LADDER_MEMO, memo_key, rung)
+                                   d2_mode, backend, nn)
+        n_chunks = max(a.padded_size, b.padded_size) // CHUNK
+        (stats, host), _ = climb(run, (nn.cap, nn.fallback), n_chunks,
+                                 n_chunks, _LADDER_MEMO, memo_key)
     if with_boundary:
         a._boundary_stats = (stats["self_min"], stats["self_max"])
     return _finish(host, a, obb_future, peak, color_scheme, point_to_plane)

@@ -77,7 +77,7 @@ from .nn_pruned import (
     resolve_knn_sched, resolve_prologue, run_prologue, stable_top,
     tier_table, unsort_rows, uses_select)
 from .refine import MOM_CH, knn_moments, refine_knn, refine_knn_straight
-from ..utils.cache import ladder_lookup, ladder_store, next_rung
+from ..utils.cache import climb
 from ..utils.profiling import span
 
 # refine_impl values: the JAX package's kernel route, then its plain route.
@@ -393,23 +393,21 @@ def knn_pruned(
     with ``prologue`` and ``sched`` in place of theirs when given.
     """
     flags = resolve_knn_flags(prologue=prologue, sched=sched)
-    nta = a_points.shape[0] // CHUNK
-    ncb = b_points.shape[0] // CHUNK
-    # The JAX package's key: both schedules overflow on the same rungs.
-    key = (a_points.shape[0], b_points.shape[0], k, exclude_self)
-    cap, fallback_tiles = ladder_lookup(
-        _ESCALATION_MEMO, key, (cap, fallback_tiles))
     ga = build_grid(a_points, int(n_a))
     gb = ga if exclude_self or a_points is b_points else build_grid(
         b_points, int(n_b))
-    while True:
+
+    def run(cap, fallback):
         dk, ik, overflow = knn_pruned_sorted(
             ga, gb, n_a, k, exclude_self=exclude_self, cap=cap,
-            fallback_tiles=fallback_tiles, flags=flags)
-        # Exact iff the certificate passed or stage 1 refined every chunk.
+            fallback_tiles=fallback, flags=flags)
         with span("pcc.readback"):
             overflow = bool(overflow)
-        if not overflow or cap >= ncb:
-            ladder_store(_ESCALATION_MEMO, key, (cap, fallback_tiles))
-            return unsort_rows(ga, ik), unsort_rows(ga, dk)
-        cap, fallback_tiles = next_rung(cap, fallback_tiles, ncb, nta)
+        return (dk, ik), overflow
+
+    # The JAX package's key: both schedules overflow on the same rungs.
+    key = (a_points.shape[0], b_points.shape[0], k, exclude_self)
+    (dk, ik), _ = climb(run, (cap, fallback_tiles),
+                        b_points.shape[0] // CHUNK, a_points.shape[0] // CHUNK,
+                        _ESCALATION_MEMO, key)
+    return unsort_rows(ga, ik), unsort_rows(ga, dk)

@@ -19,9 +19,15 @@ does the call report ``overflow`` and the caller escalate — exactness is
 never silently lost. Every refine goes through ``refine.refine_nn`` (K1),
 except the fixed schedule's stage 1 (K1b, below).
 
+The knobs below are resolved once a call into one ``NnSchedule``, the
+1-NN counterpart of ``knn_pruned.KnnFlags``: each public entry point, here
+and in ``ops/fused.py``, passes its keywords to ``resolve_nn_schedule``,
+which reads the environment for the rest; the layers below take that
+value. Every ladder is ``utils.cache.climb``.
+
 Two prologues produce the stage-1 candidates and counts, chosen per call
-(``prologue``; the public entry points read ``PCC_NN_PROLOGUE``, where
-"select" selects and anything else means the default):
+(``prologue``; ``PCC_NN_PROLOGUE``, where "select" selects and anything
+else means the default):
 
   * "xla", the default (``tile_bounds``): the whole (nta, ncb) lb matrix,
     a stable sort of each row and counts over it. The order is total:
@@ -38,9 +44,9 @@ Two prologues produce the stage-1 candidates and counts, chosen per call
     it). Results equal the default's bit for bit; tier choice and
     ``overflow`` follow the JAX package's select mode.
 
-Two stage-1 schedules, chosen per call (``sched``; the public entry
-points read ``PCC_NN_SCHED``, where "counted", the default, counts and any
-other value means "fixed", as in the JAX package):
+Two stage-1 schedules, chosen per call (``sched``; ``PCC_NN_SCHED``, where
+"counted", the default, counts and any other value means "fixed", as in the
+JAX package):
 
   * "counted" (cap > 8): the probe, the certificate count and the gated,
     seeded extension below;
@@ -59,9 +65,9 @@ on valid rows:
     ``nn_pruned_adaptive_sorted``, three K7 passes (``refine_adaptive``)
     over the bound matrix. Other clouds keep the default schedule, as in
     the JAX package. ``refine_impl="expanded"`` (with ``mxu_ok``) keeps the
-    default schedule and runs every K1 call in its expanded-norm mode. The
-    public entry points read ``PCC_REFINE_IMPL`` ("adaptive") and
-    ``PCC_NN_EXPANDED`` ("1") at each call (``resolve_refine_impl``).
+    default schedule and runs every K1 call in its expanded-norm mode
+    (``PCC_REFINE_IMPL`` "adaptive", ``PCC_NN_EXPANDED`` "1";
+    ``resolve_refine_impl``).
   * ``nn_pruned_sorted_payload``: stage 1 through K6, which also returns
     the winner's payload row, and one tier refined from scratch through K1
     (the fused evaluation's ``PCC_PAYLOAD_KERNEL=1``).
@@ -83,7 +89,7 @@ from .refine import (
 from .refine_adaptive import adaptive_refine, pack_candidates, pack_queries
 from .select import count_bbox, select_bbox
 from .._layout_args import check_interpret, check_pack
-from ..utils.cache import ladder_lookup, ladder_store, next_rung
+from ..utils.cache import climb
 from ..utils.profiling import span, spanned
 
 PROLOGUES = ("xla", "select")
@@ -103,6 +109,8 @@ NN_SCHED_ENV = "PCC_NN_SCHED"
 KNN_SCHED_ENV = "PCC_KNN_SCHED"
 NN_P1_ENV = "PCC_NN_P1"
 KNN_P1_ENV = "PCC_KNN_P1"
+PAYLOAD_ENV = "PCC_PAYLOAD_KERNEL"
+NN_CAP_ENV, NN_FT_ENV = "PCC_NN_CAP", "PCC_NN_FT"
 
 
 def resolve_sched(sched: typing.Optional[str], env: str) -> str:
@@ -164,6 +172,57 @@ def resolve_prologue(prologue: typing.Optional[str], env: str) -> str:
     if prologue not in PROLOGUES:
         raise ValueError(f"unknown prologue {prologue!r}; one of {PROLOGUES}")
     return prologue
+
+
+def resolve_payload(payload: typing.Optional[bool] = None) -> bool:
+    """Whether the cross sweeps may take the payload schedule (K6):
+    ``payload`` when given, else ``PCC_PAYLOAD_KERNEL == "1"`` read at this
+    call."""
+    if payload is None:
+        return os.environ.get(PAYLOAD_ENV) == "1"
+    return bool(payload)
+
+
+def nn_base_rung(cap: typing.Optional[int] = None,
+                 fallback: typing.Optional[int] = None):
+    """The pruned sweeps' base rung: each of ``cap`` and ``fallback`` when
+    given, else ``PCC_NN_CAP`` / ``PCC_NN_FT`` read at this call (32 and
+    256 when unset), as the JAX package's ``fused_evaluate`` reads them."""
+    return (int(os.environ.get(NN_CAP_ENV, "32")) if cap is None else cap,
+            int(os.environ.get(NN_FT_ENV, "256")) if fallback is None
+            else fallback)
+
+
+class NnSchedule(typing.NamedTuple):
+    """The 1-NN searches' schedule, resolved once a call. ``cap`` and
+    ``fallback`` are the ladder's base rung; a ladder runs each rung as
+    ``_replace(cap=, fallback=)``."""
+    sched: str  # stage 1, "counted" or "fixed"
+    p1: int  # the counted schedule's probe width
+    prologue: str  # "xla" or "select"
+    refine_impl: str  # one of REFINE_IMPLS
+    payload: bool  # the cross sweeps through K6 where the pair allows
+    cap: int  # stage-1 chunks a tile
+    fallback: int  # the tiers' tile budget
+
+
+def resolve_nn_schedule(*, sched: typing.Optional[str] = None,
+                        p1: typing.Optional[int] = None,
+                        prologue: typing.Optional[str] = None,
+                        refine_impl: typing.Optional[str] = None,
+                        payload: typing.Optional[bool] = None,
+                        cap: typing.Optional[int] = None,
+                        fallback: typing.Optional[int] = None) -> NnSchedule:
+    """Each value given, the rest read from the environment now, by the
+    rules (defaults, JAX names, errors) of ``resolve_nn_sched``,
+    ``resolve_p1`` (``PCC_NN_P1``), ``resolve_prologue``
+    (``PCC_NN_PROLOGUE``), ``resolve_refine_impl``, ``resolve_payload`` and
+    ``nn_base_rung``."""
+    return NnSchedule(
+        resolve_nn_sched(sched), resolve_p1(p1, NN_P1_ENV),
+        resolve_prologue(prologue, NN_PROLOGUE_ENV),
+        resolve_refine_impl(refine_impl), resolve_payload(payload),
+        *nn_base_rung(cap, fallback))
 
 
 def stable_top(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -280,7 +339,6 @@ def tier_table(pro: Prologue, gb: ChunkGrid, tiles: torch.Tensor):
     return olb, lb_order(olb)
 
 
-@spanned("pcc.sweep")
 def nn_pruned_sorted(
     ga: ChunkGrid,
     gb: ChunkGrid,
@@ -303,44 +361,43 @@ def nn_pruned_sorted(
     overflow 0-d bool tensor)``. Sentinel query rows return meaningless
     (finite) distances — callers mask by row < n_a.
 
-    Schedule (the JAX package's default, ``sched="counted"``): a probe of
-    the ``p1`` lowest-lb chunks of every tile (``PCC_NN_P1`` read at this
-    call when ``p1`` is None, else 8), a certificate count from its ub, an
-    in-place extension of each tile to min(count, cap) chunks seeded from
-    the probe (gated per tile), then tier A (the top ``fallback_tiles``
-    tiles by count, widened to cap2a) and tier B (the worst of those,
-    widened to cap2b), both seeded and gated. With ``sched="fixed"`` or
-    cap <= 8 stage 1 is K2c's ``cap`` candidates and one K1b refine of all
-    of them (module docstring). ``prologue`` ("xla" or "select") picks
-    where the counted schedule's stage-1 candidates and counts come from.
-
-    ``mxu_ok`` asserts that both clouds pass ``Cloud.mxu_exact``. Only then
-    does ``refine_impl="adaptive"`` run ``nn_pruned_adaptive_sorted`` (the
-    rung maps to cap max(64, cap) and ft3 max(64, fallback_tiles // 4), as
-    in the JAX package; it keeps its own probe width and the bound-matrix
-    prologue) and ``refine_impl="expanded"`` K1's expanded-norm mode (in
-    the tiers only on the fixed schedule: K1b, like the JAX package's
-    straight kernel, has the difference form alone). Results are
-    bit-identical either way on valid rows. ``refine_impl`` is read by
-    ``resolve_refine_impl``: "auto", the default, at this call from the
-    environment; the JAX package's "pallas", "pallas_interpret" and "xla"
-    run the default schedule. ``qt8`` is the JAX package's query pack,
-    checked and unused (``_layout_args``).
+    Schedule (module docstring; the knobs not given, ``p1`` None and
+    ``refine_impl`` "auto", are read at this call): on the counted one a
+    probe of the ``p1`` lowest-lb chunks of every tile (8 by default), a
+    certificate count from its ub, an in-place extension of each tile to
+    min(count, cap) chunks seeded from the probe (gated per tile), then
+    tier A (the top ``fallback_tiles`` tiles by count, widened to cap2a)
+    and tier B (the worst of those, widened to cap2b), both seeded and
+    gated. ``mxu_ok`` asserts that both clouds pass ``Cloud.mxu_exact``;
+    only then does ``refine_impl`` "adaptive" run
+    ``nn_pruned_adaptive_sorted`` (at cap max(64, cap) and ft3 max(64,
+    fallback_tiles // 4), as in the JAX package) and "expanded" K1's
+    expanded-norm mode (in the tiers only on the fixed schedule: K1b has
+    the difference form alone), bit-identical on valid rows. ``qt8`` is
+    the JAX package's query pack, checked and unused (``_layout_args``).
     """
     check_pack("qt8", qt8)
-    refine_impl = resolve_refine_impl(refine_impl)
-    if refine_impl == "adaptive" and mxu_ok:
+    return _nn_pruned_sorted(ga, gb, n_a, exclude_self, resolve_nn_schedule(
+        sched=sched, p1=p1, prologue=prologue, refine_impl=refine_impl,
+        payload=False, cap=cap, fallback=fallback_tiles), mxu_ok)
+
+
+@spanned("pcc.sweep")
+def _nn_pruned_sorted(ga: ChunkGrid, gb: ChunkGrid, n_a: int,
+                      exclude_self: bool, nn: NnSchedule, mxu_ok: bool):
+    """``nn_pruned_sorted`` on the resolved schedule ``nn``."""
+    if nn.refine_impl == "adaptive" and mxu_ok:
         return nn_pruned_adaptive_sorted(
-            ga, gb, n_a, exclude_self=exclude_self, cap=max(64, cap),
-            ft3=max(64, fallback_tiles // 4))
-    expanded = refine_impl == "expanded" and mxu_ok
+            ga, gb, n_a, exclude_self=exclude_self, cap=max(64, nn.cap),
+            ft3=max(64, nn.fallback // 4))
+    expanded = nn.refine_impl == "expanded" and mxu_ok
     nta = ga.points.shape[0] // CHUNK
     ncb = gb.n_chunks
-    cap = min(cap, ncb)
-    sched = resolve_nn_sched(sched)
-    counted = sched == "counted" and cap > 8
+    cap = min(nn.cap, ncb)
+    counted = nn.sched == "counted" and cap > 8
     pro = run_prologue(ga, gb, n_a, cap,
-                       uses_select(prologue, cap, ga.points.dtype, sched),
+                       uses_select(nn.prologue, cap, ga.points.dtype,
+                                   nn.sched),
                        fixed=not counted)
     valid_t, order = pro.valid_t, pro.order
 
@@ -349,7 +406,7 @@ def nn_pruned_sorted(
                          exclude_self=exclude_self, expanded=expanded, **kw)
 
     if counted:
-        p1 = max(1, min(resolve_p1(p1, NN_P1_ENV), cap - 1))
+        p1 = max(1, min(nn.p1, cap - 1))
         d1, i1 = refine(order[:, :p1])
         counts1 = pro.counts(cert_ub(d1, valid_t))
         ncand2 = torch.clamp(counts1 - p1, 0, cap - p1).to(torch.int32)
@@ -363,7 +420,7 @@ def nn_pruned_sorted(
     # ---- stage-1 exactness certificate
     ub_eff = cert_ub(dmin, valid_t)
     counts = pro.counts(ub_eff)
-    ft = min(fallback_tiles, nta)
+    ft = min(nn.fallback, nta)
     cap2a = min(max(4 * cap, 128), ncb)
     cap2b = min(max(16 * cap, 512, ncb // 4), ncb)
     overflow = (counts > cap).sum() > ft
@@ -684,21 +741,28 @@ def nn_pruned_with_grids(
     pass of an evaluation. ``prologue`` and ``sched`` default to
     ``PCC_NN_PROLOGUE`` and ``PCC_NN_SCHED``, read at this call.
     """
-    nta = ga.points.shape[0] // CHUNK
-    ncb = gb.n_chunks
-    prologue = resolve_prologue(prologue, NN_PROLOGUE_ENV)
-    sched = resolve_nn_sched(sched)
-    while True:
-        d_s, i_s, overflow = nn_pruned_sorted(
-            ga, gb, n_a, exclude_self=exclude_self, cap=cap,
-            fallback_tiles=fallback_tiles, prologue=prologue, sched=sched)
-        # Exact iff the certificate passed, or stage 1 refined every chunk.
+    nn = resolve_nn_schedule(prologue=prologue, sched=sched, payload=False,
+                             cap=cap, fallback=fallback_tiles)
+    return _nn_climb(ga, gb, n_a, exclude_self, nn, gb.n_chunks)
+
+
+def _nn_climb(ga, gb, n_a, exclude_self, nn: NnSchedule, ncb: int,
+              memo=None, key=None):
+    """``(idx, dist_sq)`` in ORIGINAL order, climbing from ``nn``'s rung
+    with the limits ``(ncb, nta)``."""
+
+    def run(cap, fallback):
+        d_s, i_s, overflow = _nn_pruned_sorted(
+            ga, gb, n_a, exclude_self,
+            nn._replace(cap=cap, fallback=fallback), mxu_ok=False)
         with span("pcc.readback"):
             overflow = bool(overflow)
-        if not overflow or cap >= ncb:
-            d, idx = unsort_nn_result(ga, gb, d_s, i_s)
-            return idx, d
-        cap, fallback_tiles = next_rung(cap, fallback_tiles, ncb, nta)
+        return (d_s, i_s), overflow
+
+    (d_s, i_s), _ = climb(run, (nn.cap, nn.fallback), ncb,
+                          ga.points.shape[0] // CHUNK, memo, key)
+    d, idx = unsort_nn_result(ga, gb, d_s, i_s)
+    return idx, d
 
 
 # Remembers the (cap, fallback_tiles) rung that certified per problem shape,
@@ -727,24 +791,11 @@ def nn_pruned(
     remembered per problem shape. ``prologue`` and ``sched``
     default to ``PCC_NN_PROLOGUE`` and ``PCC_NN_SCHED``, read at this call.
     """
-    prologue = resolve_prologue(prologue, NN_PROLOGUE_ENV)
-    sched = resolve_nn_sched(sched)
-    nta = a_points.shape[0] // CHUNK
-    ncb = b_points.shape[0] // CHUNK
-    # The JAX package's key: both schedules overflow on the same rungs.
-    key = (a_points.shape[0], b_points.shape[0], exclude_self)
-    cap, fallback_tiles = ladder_lookup(
-        _ESCALATION_MEMO, key, (cap, fallback_tiles))
+    nn = resolve_nn_schedule(prologue=prologue, sched=sched, payload=False,
+                             cap=cap, fallback=fallback_tiles)
     ga = build_grid(a_points, int(n_a))
     gb = ga if exclude_self else build_grid(b_points, int(n_b))
-    while True:
-        d_s, i_s, overflow = nn_pruned_sorted(
-            ga, gb, int(n_a), exclude_self=exclude_self, cap=cap,
-            fallback_tiles=fallback_tiles, prologue=prologue, sched=sched)
-        with span("pcc.readback"):
-            overflow = bool(overflow)
-        if not overflow or cap >= ncb:
-            ladder_store(_ESCALATION_MEMO, key, (cap, fallback_tiles))
-            d, idx = unsort_nn_result(ga, gb, d_s, i_s)
-            return idx, d
-        cap, fallback_tiles = next_rung(cap, fallback_tiles, ncb, nta)
+    # The JAX package's key: both schedules overflow on the same rungs.
+    key = (a_points.shape[0], b_points.shape[0], exclude_self)
+    return _nn_climb(ga, gb, int(n_a), exclude_self, nn,
+                     b_points.shape[0] // CHUNK, _ESCALATION_MEMO, key)

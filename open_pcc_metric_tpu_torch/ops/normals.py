@@ -22,7 +22,7 @@ import torch
 
 from .eigh3 import smallest_eigenvector_components, smallest_eigenvector_sym3
 from .grid import CHUNK
-from ..utils.cache import ladder_lookup, ladder_store, next_rung
+from ..utils.cache import climb
 from ..utils.profiling import span, spanned
 
 DEFAULT_KNN = 30
@@ -205,20 +205,16 @@ def estimate_normals_cloud(cloud, k: int = DEFAULT_KNN, *,
 
     flags = resolve_knn_flags(prologue=prologue, sched=sched)
     g = cloud.get_grid()
-    ncb = g.n_chunks
-    memo_key = (p, k)
-    cap, fallback_tiles = ladder_lookup(_LADDER_MEMO, memo_key,
-                                        knn_base_rung(cap, fallback_tiles))
-    while True:
-        nrm, nrm_sorted, mn, mx, overflow = estimation_core(
-            g, n, k, cap, fallback_tiles, flags)
-        # Exact iff certified or stage 1 refined every chunk.
+
+    def run(cap, fallback):
+        *out, overflow = estimation_core(g, n, k, cap, fallback, flags)
         with span("pcc.readback"):
             overflow = bool(overflow)
-        if not overflow or cap >= ncb:
-            ladder_store(_LADDER_MEMO, memo_key, (cap, fallback_tiles))
-            break
-        cap, fallback_tiles = next_rung(cap, fallback_tiles, ncb, p // CHUNK)
+        return out, overflow
+
+    (nrm, nrm_sorted, mn, mx), _ = climb(
+        run, knn_base_rung(cap, fallback_tiles), g.n_chunks, p // CHUNK,
+        _LADDER_MEMO, (p, k))
     if k >= 2 and n >= 2 and cloud._boundary_stats is None:
         cloud._boundary_stats = (mn, mx)
     # Only default-k normals may feed the sorted-normals cache that the

@@ -18,12 +18,13 @@ the winning frame's extent is then recomputed in float64 on the host.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import typing
 
 import numpy as np
 import torch
 
-from ..utils.profiling import span, spanned
+from ..utils.profiling import bind, span, spanned
 
 
 def _frame_extents(frames_flat: np.ndarray, verts: np.ndarray,
@@ -114,3 +115,15 @@ def minimal_obb_extent(
     # Refine the winning frame's extent in float64 on the host.
     proj = verts @ frames[best].T
     return proj.max(axis=0) - proj.min(axis=0)
+
+
+def start_obb_extent(points: typing.Callable[[], np.ndarray],
+                     device) -> concurrent.futures.Future:
+    """The future of ``minimal_obb_extent(points(), device=device)`` on a
+    thread of its own with this thread's trace context (``bind``), both
+    looked up there at the call (a wrapper set on the module runs)."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(bind(
+        lambda: minimal_obb_extent(points(), device=device)))
+    pool.shutdown(wait=False)
+    return future

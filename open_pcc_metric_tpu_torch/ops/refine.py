@@ -382,10 +382,10 @@ def refine_nn_payload_reference(
 def _extract_k(d: torch.Tensor, ids: torch.Tensor, k: int):
     """The ascending k smallest distinct (d, id) pairs over the last axis,
     ending in (inf, INT_MAX) where a row has fewer: the result of the JAX
-    package's ``_extract_k`` (k rounds of the lexicographic minimum, kept
-    as ``_extract_k_rounds``, the tests' reference), from stable sorts: by
-    id, then by d; a pair equal to its left neighbour is a repeat, and the
-    first k others are scattered to their ranks among the kept pairs."""
+    package's ``_extract_k`` (k rounds of the lexicographic minimum), from
+    stable sorts: by id, then by d; a pair equal to its left neighbour is a
+    repeat, and the first k others are scattered to their ranks among the
+    kept pairs."""
     if d.shape[-1] < k:
         pad = d.shape[:-1] + (k - d.shape[-1],)
         d = torch.cat([d, d.new_full(pad, torch.inf)], dim=-1)
@@ -401,26 +401,6 @@ def _extract_k(d: torch.Tensor, ids: torch.Tensor, k: int):
     shape = d.shape[:-1] + (k + 1,)
     return (d.new_full(shape, torch.inf).scatter_(-1, rank, d)[..., :k],
             ids.new_full(shape, INT_MAX).scatter_(-1, rank, ids)[..., :k])
-
-
-def _extract_k_rounds(d: torch.Tensor, ids: torch.Tensor, k: int):
-    """k rounds of (lexicographic minimum, mask it out) over the last axis:
-    the ascending k smallest distinct (d, id) pairs. Masked entries become
-    (inf, INT_MAX), so a row with fewer than k finite pairs ends in
-    (inf, INT_MAX). The JAX package's ``_extract_k``, kept as the tests'
-    reference for ``_extract_k``."""
-    out_d = d.new_empty(d.shape[:-1] + (k,))
-    out_i = ids.new_empty(ids.shape[:-1] + (k,))
-    for r in range(k):
-        m = d.amin(dim=-1, keepdim=True)
-        at_min = d == m
-        ii = torch.where(at_min, ids, INT_MAX).amin(dim=-1, keepdim=True)
-        hit = at_min & (ids == ii)
-        d = d.masked_fill(hit, torch.inf)
-        ids = ids.masked_fill(hit, INT_MAX)
-        out_d[..., r] = m[..., 0]
-        out_i[..., r] = ii[..., 0]
-    return out_d, out_i
 
 
 def refine_knn_reference(

@@ -1,6 +1,8 @@
 """Certificate-escalation ladder helpers (port of the JAX package's
-``utils/cache.py``; its compilation-cache setup has no PyTorch counterpart)."""
+``utils/cache.py``, less its compilation-cache setup) and ``climb``."""
 from __future__ import annotations
+
+import typing
 
 
 def ladder_lookup(memo: dict, key, base, retry: int = 64):
@@ -43,3 +45,23 @@ def ladder_store(memo: dict, key, rung) -> None:
         memo[key] = (rung, ent[1] + 1)
     else:
         memo[key] = (rung, 0)
+
+
+def climb(run: typing.Callable, base: typing.Tuple[int, int], max_cap: int,
+          max_ft: int, memo: typing.Optional[dict] = None, key=None):
+    """The certificate ladder: ``run(cap, ft)``, which returns ``(result,
+    overflow)`` with ``overflow`` a host bool, from ``base`` (with a
+    ``memo``, the rung ``ladder_lookup`` gives under ``key``) up
+    ``next_rung``'s rungs until one is exact; returns ``(result, rung)``
+    and, with a ``memo``, ``ladder_store``s that rung."""
+    rung = base if memo is None else ladder_lookup(memo, key, base)
+    while True:
+        result, overflow = run(*rung)
+        # Exact iff the certificate passed, or stage 1 refined every search
+        # chunk (cap >= max_cap): then no chunk is left that could hold a
+        # nearer point, whatever the certificate says.
+        if not overflow or rung[0] >= max_cap:
+            if memo is not None:
+                ladder_store(memo, key, rung)
+            return result, rung
+        rung = next_rung(*rung, max_cap, max_ft)

@@ -12,6 +12,8 @@ monkeypatched environment.
 before and after, and spies show the probe width on both sides; it reads
 the others at each call.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -206,3 +208,57 @@ def test_knn_p1_env_matches_jax(monkeypatch):
         jknn.clear_cache()
     assert jcalls[0][0][3].shape[1] == 3
     assert_matches(got, want, a.n, k=8)
+
+
+# The 1-NN knobs: (variable, a value it is set to, the NnSchedule field it
+# sets, that field's resolver before NnSchedule, an explicit argument).
+NN_KNOBS = [
+    ("PCC_NN_SCHED", "fixed", "sched", lambda: nn_mod.resolve_nn_sched(),
+     "counted"),
+    ("PCC_NN_P1", "3", "p1", lambda: nn_mod.resolve_p1(None, "PCC_NN_P1"),
+     8),
+    ("PCC_NN_PROLOGUE", "select", "prologue",
+     lambda: nn_mod.resolve_prologue(None, "PCC_NN_PROLOGUE"), "xla"),
+    ("PCC_REFINE_IMPL", "adaptive", "refine_impl",
+     lambda: nn_mod.resolve_refine_impl(), "xla"),
+    ("PCC_NN_EXPANDED", "1", "refine_impl",
+     lambda: nn_mod.resolve_refine_impl(), "default"),
+    ("PCC_PAYLOAD_KERNEL", "1", "payload", lambda: nn_mod.resolve_payload(),
+     False),
+    ("PCC_NN_CAP", "12", "cap", lambda: nn_mod.nn_base_rung()[0], 32),
+    ("PCC_NN_FT", "8", "fallback", lambda: nn_mod.nn_base_rung()[1], 256),
+]
+NN_DEFAULT = nn_mod.NnSchedule(sched="counted", p1=8, prologue="xla",
+                               refine_impl="default", payload=False, cap=32,
+                               fallback=256)
+
+
+@pytest.mark.parametrize("var,value,field,old,explicit", NN_KNOBS,
+                         ids=[k[0] for k in NN_KNOBS])
+def test_resolve_nn_schedule_reads_each_knob(var, value, field, old,
+                                             explicit, monkeypatch):
+    """``resolve_nn_schedule`` with one knob set alone: that field is what
+    its own resolver reads, every other field its default; an explicit
+    argument beats the environment (a JAX refine name mapped as
+    ``resolve_refine_impl`` maps it)."""
+    for knob in NN_KNOBS:
+        monkeypatch.delenv(knob[0], raising=False)
+    assert nn_mod.resolve_nn_schedule() == NN_DEFAULT
+    monkeypatch.setenv(var, value)
+    got = nn_mod.resolve_nn_schedule()
+    assert getattr(got, field) == old() != getattr(NN_DEFAULT, field)
+    assert got == NN_DEFAULT._replace(**{field: old()})
+    assert nn_mod.resolve_nn_schedule(**{field: explicit}) == NN_DEFAULT
+
+
+@pytest.mark.parametrize("field,old", [
+    ("sched", nn_mod.resolve_nn_sched),
+    ("prologue", lambda v: nn_mod.resolve_prologue(v, "PCC_NN_PROLOGUE")),
+    ("refine_impl", nn_mod.resolve_refine_impl)])
+def test_resolve_nn_schedule_raises_as_its_resolvers(field, old):
+    """An unknown schedule, prologue or refine schedule raises the
+    ValueError its own resolver raises."""
+    with pytest.raises(ValueError) as want:
+        old("bogus")
+    with pytest.raises(ValueError, match=re.escape(str(want.value))):
+        nn_mod.resolve_nn_schedule(**{field: "bogus"})

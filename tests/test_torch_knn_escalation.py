@@ -10,6 +10,7 @@ same rungs (both stage-1 forms refine every chunk that can hold a
 neighbour, so the k-th distances and counts agree).
 """
 import numpy as np
+import pytest
 import torch
 
 from open_pcc_metric_tpu_torch.cloud import Cloud
@@ -90,3 +91,63 @@ def test_brute_knn_matches_jax():
         np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
         np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
         assert np.mean(np.diff(d.numpy(), axis=1) == 0) > 0.3  # ties abound
+
+
+# Each ladder's base rung and (max_cap, max_ft) limits at a shape of its
+# own: the stepwise fused ladder and boundary_stats (n_chunks, n_chunks),
+# nn_pruned (ncb, nta), knn_pruned (ncb, nta), the estimation (ncb,
+# p // CHUNK).
+LADDERS = {"fused": ((32, 256), (3328, 3328)),
+           "nn_pruned": ((32, 128), (1920, 3328)),
+           "knn_pruned": ((64, 256), (300, 40)),
+           "normals": ((64, 256), (3328, 3328))}
+
+
+def _rungs(base, max_cap, max_ft, n):
+    """The first n rungs from base by next_rung, stopping at max_cap."""
+    from open_pcc_metric_tpu_torch.utils.cache import next_rung
+
+    out = [base]
+    while len(out) < n and out[-1][0] < max_cap:
+        out.append(next_rung(*out[-1], max_cap, max_ft))
+    return out
+
+
+@pytest.mark.parametrize("hold", [0, 2, 99])
+@pytest.mark.parametrize("ladder", sorted(LADDERS))
+def test_climb_rungs_and_memo(ladder, hold):
+    """``utils.cache.climb`` with a fake run that overflows on the first
+    ``hold`` rungs of next_rung's sequence: it tries those rungs from the
+    base in order and returns the first that certifies, or the first at
+    cap >= max_cap even while that overflows (hold 99). With a memo it
+    stores that rung as ladder_store does and starts the next call there;
+    after 64 uses it retries the base rung once, which overflows and
+    re-climbs to the same rung."""
+    from open_pcc_metric_tpu_torch.utils.cache import climb
+
+    base, (max_cap, max_ft) = LADDERS[ladder]
+    want = _rungs(base, max_cap, max_ft, hold + 1)
+    tried = []
+
+    def run(cap, ft):
+        tried.append((cap, ft))
+        return len(tried), (cap, ft) in want[:hold]
+
+    result, rung = climb(run, base, max_cap, max_ft)
+    assert tried == want and rung == want[-1] and result == len(want)
+    if hold == 99:
+        assert rung[0] >= max_cap > want[-2][0]
+    memo, key = {}, ("shape", ladder)
+    del tried[:]
+    assert climb(run, base, max_cap, max_ft, memo, key)[1] == rung
+    assert tried == want and memo == {key: (rung, 0)}
+    del tried[:]
+    assert climb(run, base, max_cap, max_ft, memo, key)[1] == rung
+    assert tried == [rung] and memo == {key: (rung, 1)}
+    memo[key] = (rung, 64)
+    del tried[:]
+    assert climb(run, base, max_cap, max_ft, memo, key)[1] == rung
+    if rung == base:  # nothing to retry: the use is counted
+        assert tried == [base] and memo == {key: (base, 65)}
+    else:
+        assert tried == want and memo == {key: (rung, 1)}

@@ -24,8 +24,7 @@ from open_pcc_metric_tpu_torch.ops.grid import CHUNK
 from open_pcc_metric_tpu_torch.ops.knn_pruned import (
     KnnFlags, knn_flags_from_env, knn_pruned_sorted)
 from open_pcc_metric_tpu_torch.ops.refine import (
-    INT_MAX, _extract_k, _extract_k_rounds, knn_moments, refine_knn,
-    refine_knn_straight)
+    INT_MAX, _extract_k, knn_moments, refine_knn, refine_knn_straight)
 
 from test_torch_refine import jax_on_cpu
 
@@ -97,6 +96,26 @@ def test_overrides_and_refine_impl(monkeypatch):
 
 
 # ---------------------------------------------------------------- k-best
+
+
+def _extract_k_rounds(d: torch.Tensor, ids: torch.Tensor, k: int):
+    """k rounds of (lexicographic minimum, mask it out) over the last axis:
+    the ascending k smallest distinct (d, id) pairs. Masked entries become
+    (inf, INT_MAX), so a row with fewer than k finite pairs ends in
+    (inf, INT_MAX). The JAX package's ``_extract_k``, the reference for
+    the port's ``refine._extract_k``."""
+    out_d = d.new_empty(d.shape[:-1] + (k,))
+    out_i = ids.new_empty(ids.shape[:-1] + (k,))
+    for r in range(k):
+        m = d.amin(dim=-1, keepdim=True)
+        at_min = d == m
+        ii = torch.where(at_min, ids, INT_MAX).amin(dim=-1, keepdim=True)
+        hit = at_min & (ids == ii)
+        d = d.masked_fill(hit, torch.inf)
+        ids = ids.masked_fill(hit, INT_MAX)
+        out_d[..., r] = m[..., 0]
+        out_i[..., r] = ii[..., 0]
+    return out_d, out_i
 
 
 @pytest.mark.parametrize("cols,k", [(300, 30), (17, 30), (64, 1)])

@@ -229,3 +229,34 @@ def test_staged_reader_hands_out_read_point_clouds_points(tmp_path, make):
         assert (g is None) == (w is None), name
         if g is not None:
             assert g.dtype == w.dtype and np.array_equal(g, w), name
+
+
+@pytest.mark.parametrize("path", ["early", "fused"])
+def test_each_call_reaches_a_module_patch_once(tmp_path, monkeypatch, path):
+    """``ops.obb.minimal_obb_extent`` replaced on the module, as the
+    cli-pairs benchmark cell times it: every ``evaluate_files`` call
+    without a peak runs the replacement exactly once, on a thread of its
+    own, whether the hull starts as the origin is read ("early") or, with
+    the staged reader handing out no points, in ``fused_evaluate``
+    ("fused"); the tables are the same either way."""
+    import open_pcc_metric_tpu_torch.evaluate as evaluate_mod
+
+    o, r = _pair(tmp_path, 19)
+    if path == "fused":
+        monkeypatch.setattr(evaluate_mod, "_read_point_cloud_staged",
+                            lambda p, start: read_point_cloud(p))
+    original, threads = obb.minimal_obb_extent, []
+
+    def timed(*args, **kwargs):
+        threads.append(threading.get_ident())
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(obb, "minimal_obb_extent", timed)
+    with profile(activities=[ProfilerActivity.CPU]):
+        tables = [evaluate_files(o, r, OPTS, device="cpu") for _ in range(3)]
+    assert len(threads) == 3 and threading.get_ident() not in threads
+    main = profiling.totals(thread=threading.get_native_id())
+    early = main["pcc.obb.early"].calls if "pcc.obb.early" in main else 0
+    assert early == (3 if path == "early" else 0)
+    for table in tables[1:]:
+        _assert_tables_equal(table, tables[0])
