@@ -33,6 +33,9 @@ Hausdorff):
     on the 800k origin and its QP 18 frame without normals, fresh clouds
     every call, one warm-up and RUNS timed calls with the plain versions
     guarded, one K8 launch a call;
+  * the PLY decode (K9, ``ply_decode_phases``): the 800k original and its
+    QP 6 frame loaded from file to device by K9 and by the host path, bit
+    for bit, with the pinned read, the copy and the kernel timed apart;
   * the select-prologue paths (``PCC_NN_PROLOGUE=select`` and
     ``PCC_KNN_PROLOGUE=select``, K2a and K2b): the 800k pair with normals
     and the 800k estimation path, in turns with the default prologue, and
@@ -215,6 +218,8 @@ KERNELS = {
     "refine_nn_fused": "open_pcc_metric_tpu/ops/refine_pallas.py:341",
     # K8 replaces no Pallas kernel: the JAX package's brute k-NN is XLA.
     "knn_brute": "open_pcc_metric_tpu/ops/knn.py (plain XLA)",
+    # K9 replaces no Pallas kernel: the JAX package parses PLYs on the host.
+    "ply_decode": "open_pcc_metric_tpu/io/loaders.py (host numpy)",
 }
 # K1c has no caller in either package (grep: refine_nn_pallas_fused is
 # defined in refine_pallas.py and called nowhere else; refine_nn_fused is
@@ -1671,6 +1676,129 @@ def knn_brute_phases(dev, seed=0):
     return records, small_estimation_path(
         (origin, colors), degrade_gpcc_like(origin, colors, 18, seed=seed),
         dev)
+
+
+def ply_decode_phases(dev, smi, seed=0):
+    """K9 against the host path, from file to device, on the benchmark's
+    files (``io.write_ply``: float64 x, y, z, float64 normals on the
+    original, uchar colours): an 800k original and its QP 6 frame
+    (``datasets.degrade_gpcc_like``). Each phase holds ``load_cloud``'s
+    cloud (K9) to the host path's (``read_point_cloud`` plus
+    ``Cloud.from_numpy``) bit for bit, ``mxu_exact`` too, and gives the
+    median wall ms of RUNS loads of each (``load_ms``, ``host_ms``: from
+    the file to the device, synchronised; warm page cache) and the decoded
+    load's parts, which add up to about ``load_ms``: ``header_ms`` (the
+    header parse, wall), ``read_ms`` (the vertex block read into a pinned
+    buffer already held, wall), ``copy_ms`` (the raw records' copy, CUDA
+    events) and ``ms`` (K9 alone, its memset and kernel: CUDA events over
+    launches captured in one CUDA graph); besides ``stage_ms`` (wall of
+    ``ply_decode.stage``: header, a buffer from torch's pinned cache and
+    the read), ``eager_ms`` (K9's wrapper called eagerly, CUDA events: its
+    host time where that is longer), K9's plain version on the card
+    (``plain_ms``), the bytes bound, and the registers and blocks an SM
+    that the CUDA runtime gives for the kernel as built. Returns (records,
+    K9 launches on the decoded loads)."""
+    import tempfile
+
+    import torch
+
+    from open_pcc_metric_tpu_torch import evaluate
+    from open_pcc_metric_tpu_torch.cloud import Cloud
+    from open_pcc_metric_tpu_torch.datasets import (degrade_gpcc_like,
+                                                    voxel_surface)
+    from open_pcc_metric_tpu_torch.io import (ply_decode, read_point_cloud,
+                                              write_ply)
+    from open_pcc_metric_tpu_torch.ops import refine
+
+    pts, colors, nrm = voxel_surface(N_POINTS, seed=seed)
+    frame, fcolors = degrade_gpcc_like(pts, colors, 6, seed=seed)
+    regs, per_sm = refine.occupancy("ply_decode")
+    records, launches = [], 0
+
+    def wall_ms(fn):
+        times = []
+        for _ in range(RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [("original 800k", os.path.join(tmp, "o.ply"), pts, colors,
+                  nrm),
+                 ("qp6 frame", os.path.join(tmp, "f.ply"), frame, fcolors,
+                  None)]
+        for name, path, p, c, n in files:
+            write_ply(path, p, colors=c, normals=n)
+            def host_load():
+                raw = read_point_cloud(path)
+                return Cloud.from_numpy(raw.points, raw.colors, raw.normals,
+                                        device=dev)
+
+            host, host_ms = wall_ms(host_load)
+            before = ply_decode.decode_records.launches
+            got, load_ms = wall_ms(lambda: evaluate.load_cloud(path,
+                                                               device=dev))
+            launches += ply_decode.decode_records.launches - before
+            for attr in ("points", "colors", "normals"):
+                g, w = getattr(got, attr), getattr(host, attr)
+                if (g is None) != (w is None) or (
+                        g is not None and not _bit_equal(g, w)):
+                    raise AssertionError(f"K9 phase {name}: {attr} differ "
+                                         "from the host path's")
+            if got.mxu_exact() != host.mxu_exact():
+                raise AssertionError(f"K9 phase {name}: mxu_exact differs")
+            lay, header_ms = wall_ms(lambda: ply_decode.layout(path))
+            staged, stage_ms = wall_ms(lambda: ply_decode.stage(
+                path, "float32", dev))
+            held = memoryview(staged.records.numpy())[:lay.n * lay.stride]
+
+            def read_into():
+                with open(path, "rb") as f:
+                    f.seek(lay.offset)
+                    f.readinto(held)
+
+            _, read_ms = wall_ms(read_into)
+            raw = staged.records.to(dev)
+            pad = got.padded_size
+            copy_ms = _time_ms(lambda: staged.records.to(dev,
+                                                         non_blocking=True),
+                               10)
+            outs = ply_decode.decode_records(raw, lay, pad)
+            (_, plain_ms) = _once_ms(lambda: ply_decode.decode_reference(
+                raw, lay, pad))
+            want = ply_decode.decode_reference(raw, lay, pad)
+            for g, w in zip(outs, want):
+                if (g is None) != (w is None) or (
+                        g is not None and not _bit_equal(g, w)):
+                    raise AssertionError(f"K9 phase {name}: the kernel "
+                                         "differs from its plain version")
+            bound_ms, bound_by = _bound_of(
+                0, lay.n * lay.stride + sum(
+                    x.numel() * x.element_size() for x in outs[:3]
+                    if x is not None))
+            rec = {
+                "phase": name, "points": lay.n, "padded_rows": pad,
+                "record_bytes": lay.stride, "max_abs_err": 0.0,
+                "ms": _graph_ms(lambda: ply_decode.decode_records(
+                    raw, lay, pad), 20),
+                "eager_ms": _time_ms(lambda: ply_decode.decode_records(
+                    raw, lay, pad), 20),
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "header_ms": header_ms,
+                "read_ms": read_ms, "copy_ms": copy_ms, "stage_ms": stage_ms,
+                "load_ms": load_ms, "host_ms": host_ms,
+                "mxu_exact": got.mxu_exact(),
+                "host_points_kept": got.host_points is not None,
+                "registers": regs, "blocks_per_sm": per_sm, "card": smi,
+            }
+            print("kernel phase K9 " + json.dumps(rec), flush=True)
+            records.append(rec)
+            del host, got, staged, held, raw, outs, want
+            torch.cuda.empty_cache()
+    return records, launches
 
 
 def small_estimation_path(origin, frame, dev):
@@ -3975,6 +4103,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k8_recs, k8_launches = knn_brute_phases(dev)
     torch.cuda.empty_cache()
+    k9_recs, k9_launches = ply_decode_phases(dev, smi)
 
     # The 2M pair: K2a/K2b phases, the prologue A/B, the pair in turns and
     # a stage split per sweep.
@@ -4059,6 +4188,7 @@ def main() -> int:
                                 fx_launches["refine_knn_straight"]),
         "refine_nn_fused": (None, 0),
         "knn_brute": ("small-cloud estimation path", k8_launches),
+        "ply_decode": ("ply decode", k9_launches),
     }
     phase_recs = {"refine_nn": records, "refine_knn": k3_recs,
                   "knn_moments": k4_recs, "nn_brute": k5_recs,
@@ -4067,7 +4197,8 @@ def main() -> int:
                   "select_candidates": k2c_recs,
                   "refine_nn_straight": k1b_recs,
                   "refine_knn_straight": k3b_recs,
-                  "refine_nn_fused": k1c_recs, "knn_brute": k8_recs}
+                  "refine_nn_fused": k1c_recs, "knn_brute": k8_recs,
+                  "ply_decode": k9_recs}
     kernels = []
     for name in KERNELS:
         full = _full_phase(phase_recs[name])

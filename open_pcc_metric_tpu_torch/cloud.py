@@ -69,10 +69,15 @@ def _hydrate_colors_u8(col_u8: torch.Tensor) -> torch.Tensor:
     return table[col_u8.long()]
 
 
+# The largest |coordinate| the thin upload sends as int16.
+THIN_I16_MAX = 32766.0
+
+
 def _as_int16_points(points: np.ndarray) -> typing.Optional[np.ndarray]:
     """points (n, 3) float64 -> int16 when exactly representable."""
     r = np.rint(points)
-    if np.abs(r).max(initial=0.0) <= 32766.0 and np.array_equal(r, points):
+    if (np.abs(r).max(initial=0.0) <= THIN_I16_MAX
+            and np.array_equal(r, points)):
         return r.astype(np.int16)
     return None
 
@@ -143,8 +148,10 @@ class Cloud:
       n:       number of valid points.
       colors:  optional (P, 3) float tensor in [0, 1] (Open3D convention).
       normals: optional (P, 3) float tensor, unit length for valid rows.
-      host_points: the original float64 valid points (kept by from_numpy)
-               for host-side work: grid builds, minimal-OBB hulls.
+      host_points: the original float64 valid points (kept by from_numpy;
+               a PLY decoded on the card, ``io/ply_decode.py``, keeps them
+               where its loader asked for them early or float32 cannot hold
+               them) for host-side work: grid builds, minimal-OBB hulls.
 
     The remaining fields cache per-cloud state that depends only on the
     cloud (grid, OBB extent, sorted colours and normals, boundary stats,
@@ -265,6 +272,19 @@ class Cloud:
                                                          np_dtype),
             host_points=points,
         )
+
+    @staticmethod
+    def _decoded(points: torch.Tensor, n: int,
+                 colors: typing.Optional[torch.Tensor],
+                 normals: typing.Optional[torch.Tensor],
+                 host_points: typing.Optional[np.ndarray], *,
+                 mxu_exact: bool) -> "Cloud":
+        """A Cloud from tensors already padded on its device, with its
+        ``mxu_exact`` answer known at load (``io/ply_decode.py``)."""
+        cloud = Cloud(points=points, n=n, colors=colors, normals=normals,
+                      host_points=host_points)
+        cloud._mxu_exact = mxu_exact
+        return cloud
 
     def valid_points(self) -> np.ndarray:
         """Valid points as a host numpy array (for host-side algorithms)."""

@@ -16,7 +16,7 @@ from . import metric as M
 from .calculator import CalculateResult, MetricCalculator
 from .cloud import Cloud, resolve_device
 from .cloud_pair import CloudPair
-from .io import read_point_cloud
+from .io import ply_decode, read_point_cloud
 from .io.loaders import _read_point_cloud_staged
 from .options import CalculateOptions, transform_options
 from .utils.profiling import new_pair, span
@@ -36,16 +36,30 @@ def load_cloud(
     """Read a cloud file onto ``device`` (the CUDA device when None; raises
     when there is none), padded to ``pad_to`` or its own bucket. ``thin``
     stays "auto", as in the JAX package: on a CUDA device integer points
-    and 8-bit colours upload narrow and widen there (``Cloud.from_numpy``)."""
-    return _load_cloud(path, dtype, pad_to, device, read_point_cloud)
+    and 8-bit colours upload narrow and widen there (``Cloud.from_numpy``).
+    A float32 load onto a CUDA device of a binary little-endian PLY with
+    the vertex element first and scalar properties only uploads the raw
+    records and splits them on the card into the same bits
+    (``io/ply_decode.py``)."""
+    return _load_cloud(path, dtype, pad_to, device)
 
 
-def _load_cloud(path, dtype, pad_to, device, read) -> Cloud:
-    """``load_cloud`` with the file read by ``read(path)``."""
+def _load_cloud(path, dtype, pad_to, device, on_points=None) -> Cloud:
+    """``load_cloud``, handing the (N, 3) float64 points to ``on_points``
+    (where given) the moment they exist, before the upload."""
     with span("pcc.load"):
         with span("pcc.parse"):
-            raw = read(path)
+            staged = ply_decode.stage(path, dtype, device)
+            points = None
+            if staged is None:
+                raw = (read_point_cloud(path) if on_points is None else
+                       _read_point_cloud_staged(path, on_points))
+            elif on_points is not None:
+                points = staged.host_points()
+                on_points(points)
         with span("pcc.upload"):
+            if staged is not None:
+                return staged.upload(pad_to, points)
             return Cloud.from_numpy(
                 raw.points,
                 colors=raw.colors,
@@ -82,9 +96,8 @@ def _load_pair(
         with span("pcc.obb.early"):
             hull = obb.start_obb_extent(lambda: points, dev)
 
-    read = read_point_cloud if peak is not None else (
-        lambda path: _read_point_cloud_staged(path, start))
-    origin = _load_cloud(ocloud, dtype, None, device, read)
+    origin = _load_cloud(ocloud, dtype, None, device,
+                         start if peak is None else None)
     if hull is not None:
         origin._obb_extent = hull
     return origin, load_cloud(pcloud, dtype=dtype, device=device)

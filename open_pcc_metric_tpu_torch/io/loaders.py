@@ -83,7 +83,10 @@ def _read_point_cloud_staged(
 # --------------------------------------------------------------------------- PLY
 
 
-def _read_ply(path: str, on_points=None) -> RawCloud:
+def _ply_header(path: str):
+    """A PLY's header: its format, its elements as [name, count, props]
+    (each prop (name, type) or ('__list__', count type, item type, name))
+    and the body's byte offset."""
     with open(path, "rb") as f:
         header_lines = []
         line = f.readline()
@@ -119,7 +122,11 @@ def _read_ply(path: str, on_points=None) -> RawCloud:
 
     if fmt is None:
         raise ValueError(f"{path}: PLY header missing format")
+    return fmt, elements, body_offset
 
+
+def _read_ply(path: str, on_points=None) -> RawCloud:
+    fmt, elements, body_offset = _ply_header(path)
     vtx = next((e for e in elements if e[0] == "vertex"), None)
     if vtx is None:
         raise ValueError(f"{path}: PLY has no vertex element")
@@ -186,6 +193,15 @@ def _read_ply(path: str, on_points=None) -> RawCloud:
     return _assemble_ply_cloud(path, data, names, types, on_points)
 
 
+def _ply_points(path, data, names) -> np.ndarray:
+    """The (N, 3) float64 points of a PLY's vertex columns."""
+    for ax in ("x", "y", "z"):
+        if ax not in names:
+            raise ValueError(f"{path}: vertex element missing '{ax}'")
+    return np.stack([np.asarray(data[ax], dtype=np.float64)
+                     for ax in ("x", "y", "z")], axis=1)
+
+
 def _assemble_ply_cloud(path, data, names, types, on_points=None) -> RawCloud:
     """Columns -> RawCloud with the reference's colour conventions;
     ``on_points`` (where given) gets the points before the colours and
@@ -194,10 +210,7 @@ def _assemble_ply_cloud(path, data, names, types, on_points=None) -> RawCloud:
     def col(name):
         return np.asarray(data[name], dtype=np.float64)
 
-    for ax in ("x", "y", "z"):
-        if ax not in names:
-            raise ValueError(f"{path}: vertex element missing '{ax}'")
-    points = np.stack([col("x"), col("y"), col("z")], axis=1)
+    points = _ply_points(path, data, names)
     if on_points is not None:
         on_points(points)
 

@@ -584,6 +584,8 @@ _ENTRIES = {
     "refine_nn_straight": ("pcc_refine_nn_straight", 7, 4),
     "refine_nn_fused": ("pcc_refine_nn_fused", 7, 4),
     "refine_knn_straight": ("pcc_refine_knn_straight", 9, 4),
+    # K9, wrapped by io/ply_decode.decode_records
+    "ply_decode": ("pcc_ply_decode", 5, 13),
 }
 
 

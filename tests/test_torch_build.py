@@ -31,9 +31,10 @@ def csrc(tmp_path):
 
 def test_every_kernel_includes_the_shared_header():
     sources = sorted(glob.glob(f"{_build.CSRC_DIR}/*.cu"))
-    # one for each Pallas kernel of the JAX package, and K8 (knn_brute.cu),
-    # whose JAX counterpart is plain XLA
-    assert len(sources) == 13
+    # one for each Pallas kernel of the JAX package, K8 (knn_brute.cu),
+    # whose JAX counterpart is plain XLA, and K9 (ply_decode.cu), whose
+    # counterpart is the host's PLY parse
+    assert len(sources) == 14
     for path in sources:
         with open(path) as f:
             assert '#include "pcc_common.cuh"' in f.read(), path
